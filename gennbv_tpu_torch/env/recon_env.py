@@ -1,0 +1,259 @@
+"""The GenNBV task environment, batched over envs (port of
+``gennbv_tpu/env/recon_env.py``, the splat path).
+
+``step(state, actions) -> (state', StepOutput)`` runs the whole env step on
+the scenes' device: discrete-pose decode, splat depth render, visibility,
+hits, z-test carve, occupancy and coverage update, collision, reward,
+termination and auto-reset.  The JAX package writes one env
+(``_splat_step_one`` -> ``_post_splat_one``) and vmaps it; here every op
+carries the env axis itself.
+
+Reference semantics kept (env_train_gennbv.py, env_train_base.py):
+- teleport env: the action IS the next camera pose;
+- fresh envs (episode_len == 0) have their action forced to INIT_ACTION;
+- the obs returned at a terminal step is the PRE-reset observation; state
+  buffers reset afterwards;
+- reward = coverage delta + short-path penalty, clipped at 0
+  (only_positive), then the termination bonus added after the clip;
+- termination: collision | timeout | coverage > threshold.
+
+Not ported yet (ROADMAP Queue 1 item 10): the batched splat path with the
+init-view cache, and the "dda"/"replay"/"callback" renderers; the config
+refuses them at construction.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from gennbv_tpu_torch import spec
+from gennbv_tpu_torch.config import EnvConfig
+from gennbv_tpu_torch.env import scene as scene_lib
+from gennbv_tpu_torch.ops import camera, carve, fp32, render, splat, voxel
+
+
+class EnvState(NamedTuple):
+    pose_buf: torch.Tensor      # [N, L, 6] chronological pose history
+    rgb_buf: torch.Tensor       # [N, K, h, w] grayscale history
+    prob_grid: torch.Tensor     # [N, G, G, G]
+    scanned_gt: torch.Tensor    # [N, G, G, G]
+    tri_grid: torch.Tensor      # [N, G, G, G]
+    coverage: torch.Tensor      # [N]
+    episode_len: torch.Tensor   # [N] int32
+    scene_id: torch.Tensor      # [N] int64
+    ep_rew_coverage: torch.Tensor    # [N]
+    ep_rew_short_path: torch.Tensor  # [N]
+    ep_rew_termination: torch.Tensor  # [N]
+    ep_reward: torch.Tensor     # [N]
+
+
+class StepOutput(NamedTuple):
+    obs: torch.Tensor           # [N, OBS_DIM] flat (state ++ grid ++ state_rgb)
+    reward: torch.Tensor        # [N]
+    done: torch.Tensor          # [N] bool
+    time_out: torch.Tensor      # [N] bool
+    coverage: torch.Tensor      # [N] coverage ratio after this step
+    collision: torch.Tensor     # [N] bool
+    # per-episode sums of terminated envs (0 elsewhere), for logging
+    ep_reward: torch.Tensor
+    ep_length: torch.Tensor
+    ep_rew_coverage: torch.Tensor
+    ep_rew_short_path: torch.Tensor
+    ep_rew_termination: torch.Tensor
+
+
+class ReconEnv:
+    """Batched GenNBV environment over a SceneSet; runs on the scenes'
+    device.  `step` does not modify its input state."""
+
+    def __init__(self, cfg: EnvConfig, scenes: scene_lib.SceneSet):
+        fp32.full_fp32()
+        self.cfg = cfg
+        self.scenes = scenes
+        self.device = scenes.surf_pts.device
+        cam = cfg.camera
+
+        def t(x, dtype=torch.float32):
+            return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+        self.intrinsics = t(camera.intrinsics(cam.height, cam.width,
+                                              cam.horizontal_fov_deg))
+        self.action_unit = t(spec.ACTION_UNIT)
+        self.pose_low = t(spec.CLIP_POSE_LOW)
+        self.nvec = t(spec.NVEC, torch.int32)
+        self.init_action = t(spec.INIT_ACTION, torch.int32)
+        self.init_pose = t(spec.INIT_POSE_BUF)
+        g = scenes.grid_size
+        self.num_actions = spec.ACTION_DIM
+        self.obs_dim = (cfg.pose_buf_len * spec.ACTION_DIM + g ** 3
+                        + cfg.rgb_k * cfg.rgb_h * cfg.rgb_w)
+
+    # ------------------------------------------------------------------
+    def init_state(self, num_envs: int,
+                   scene_id: Optional[torch.Tensor] = None) -> EnvState:
+        cfg = self.cfg
+        g = self.scenes.grid_size
+        dev = self.device
+        if scene_id is None:
+            # env -> scene mapping: env_idx % num_scene (env_train_gennbv.py:87-90)
+            scene_id = torch.arange(num_envs, device=dev) % self.scenes.num_scenes
+        zeros_g = torch.zeros(num_envs, g, g, g, device=dev)
+        zeros = torch.zeros(num_envs, device=dev)
+        return EnvState(
+            pose_buf=self.init_pose.expand(num_envs, cfg.pose_buf_len,
+                                           spec.ACTION_DIM).clone(),
+            rgb_buf=torch.zeros(num_envs, cfg.rgb_k, cfg.rgb_h, cfg.rgb_w,
+                                device=dev),
+            prob_grid=zeros_g,
+            scanned_gt=zeros_g,
+            tri_grid=zeros_g,
+            coverage=zeros,
+            episode_len=torch.zeros(num_envs, dtype=torch.int32, device=dev),
+            scene_id=scene_id.to(dev).long(),
+            ep_rew_coverage=zeros,
+            ep_rew_short_path=zeros,
+            ep_rew_termination=zeros,
+            ep_reward=zeros,
+        )
+
+    def reset(self, num_envs: int, scene_id: Optional[torch.Tensor] = None):
+        """Reference reset: clear all envs, then execute the forced initial
+        top-down action once and return its observation
+        (env_train_gennbv.py:229-244)."""
+        state = self.init_state(num_envs, scene_id)
+        actions = self.init_action.expand(num_envs, spec.ACTION_DIM)
+        return self.step(state, actions)
+
+    # ------------------------------------------------------------------
+    def _splat_step(self, scene_id, poses, prob_grid, scanned_gt):
+        """Render + mapping for all envs: splat z-buffer and visibility,
+        hits, z-test carve, grid and coverage update.  Returns (zbuf
+        [N, H*W], prob_grid, tri, scanned_gt, ratio)."""
+        cfg = self.cfg
+        sc = self.scenes
+        g = sc.grid_size
+        h, w = cfg.camera.height, cfg.camera.width
+        range_gt = sc.range_gt[scene_id]
+        vsize = sc.voxel_size[scene_id]
+        surf_pts = sc.surf_pts[scene_id]
+
+        r_c2w, t_c2w = camera.pose_to_c2w(poses, cfg.camera.z_offset)
+        zbuf, _, visible = splat.splat_depth(
+            surf_pts, sc.surf_mask[scene_id], self.intrinsics, r_c2w, t_c2w,
+            h, w, cfg.camera.depth_max,
+            # visibility slack: the mean render-voxel size
+            fp32.mean3_of_scaled(sc.box_hi[scene_id] - sc.box_lo[scene_id],
+                                 sc.grid_res),
+            cfg.renderer.footprint)
+
+        # visible surface points are the mapping hits
+        idx, in_bounds = voxel.points_to_voxel_idx(surf_pts, visible,
+                                                   range_gt, vsize)
+        hit_grid = voxel.scatter_hits(g, idx, in_bounds)
+        centers = scene_lib.voxel_centers(range_gt, vsize, g)
+        traversed = carve.carve_ztest(
+            centers, zbuf.reshape(-1, h, w), self.intrinsics, r_c2w, t_c2w,
+            0.5 * fp32.mean3(vsize), cfg.camera.depth_max).reshape(-1, g, g, g)
+
+        prob_grid = carve.update_prob_grid(prob_grid, hit_grid, traversed)
+        tri = voxel.tri_cls(prob_grid)
+        scanned_gt, ratio = voxel.coverage_update(
+            scanned_gt, hit_grid, sc.grid_gt[scene_id],
+            sc.num_valid_voxel[scene_id])
+        return zbuf, prob_grid, tri, scanned_gt, ratio
+
+    # ------------------------------------------------------------------
+    def step(self, state: EnvState, actions: torch.Tensor):
+        """actions: [N, 6] discrete pose indices."""
+        cfg = self.cfg
+        n = state.episode_len.shape[0]
+
+        # clip + force init action on freshly-reset envs
+        actions = torch.clamp(actions.to(self.device, torch.int32),
+                              torch.zeros_like(self.nvec), self.nvec - 1)
+        fresh = (state.episode_len == 0)[:, None]
+        actions = torch.where(fresh, self.init_action, actions)
+        # index * unit + low, one fused multiply-add as in the reference
+        poses = fp32.fma(actions.float(), self.action_unit, self.pose_low)
+        episode_len = state.episode_len + 1
+
+        zbuf, prob_grid, tri, scanned_gt, ratio = self._splat_step(
+            state.scene_id, poses, state.prob_grid, state.scanned_gt)
+        collision = render.check_collision_batch(
+            self.scenes.render_occ, self.scenes.box_lo, self.scenes.box_hi,
+            state.scene_id, poses[:, :3], cfg.collision_radius,
+            self.scenes.grid_res)
+
+        # observation buffers
+        pose_buf = torch.cat([state.pose_buf[:, 1:], poses[:, None, :]], dim=1)
+        gray = camera.depth_to_grayscale(
+            zbuf.reshape(n, cfg.camera.height, cfg.camera.width),
+            cfg.camera.depth_max, cfg.rgb_h, cfg.rgb_w)
+        rgb_buf = torch.cat([state.rgb_buf[:, 1:], gray[:, None]], dim=1)
+
+        # rewards (scale * dt semantics, config.RewardConfig)
+        rc = cfg.reward
+        d_cov = ratio - state.coverage
+        cov_scale = torch.tensor(rc.surface_coverage * rc.dt, device=self.device)
+        extra = torch.clamp(episode_len - spec.SHORT_PATH_FREE_STEPS, 0,
+                            spec.SHORT_PATH_MAX_EXTRA).float()
+        r_sp = -extra * (rc.short_path * rc.dt)
+        # coverage reward d_cov * scale, added into each sum as one fused
+        # multiply-add, as XLA compiles the reference
+        rew = fp32.fma(d_cov, cov_scale, r_sp)
+        if rc.only_positive:
+            rew = torch.clamp_min(rew, 0.0)
+
+        # termination
+        time_out = episode_len >= cfg.max_episode_length
+        done = collision | time_out
+        if cfg.coverage_done_threshold is not None:
+            done = done | (ratio > cfg.coverage_done_threshold)
+        r_term = (done & ~time_out).float() * (rc.termination * rc.dt)
+        rew = rew + r_term
+
+        # episode accounting (pre-reset values surfaced where done)
+        ep_rew_cov = fp32.fma(d_cov, cov_scale, state.ep_rew_coverage)
+        ep_rew_sp = state.ep_rew_short_path + r_sp
+        ep_rew_term = state.ep_rew_termination + r_term
+        ep_reward = state.ep_reward + rew
+        d_f = done.float()
+
+        # observation: PRE-reset (built from the updated buffers)
+        obs = torch.cat([pose_buf.reshape(n, -1), tri.reshape(n, -1),
+                         rgb_buf.reshape(n, -1)], dim=-1)
+
+        # auto-reset terminated envs
+        def mask(new, reset_val):
+            d = done.reshape((n,) + (1,) * (new.dim() - 1))
+            return torch.where(d, reset_val, new)
+
+        new_state = EnvState(
+            pose_buf=mask(pose_buf, self.init_pose),
+            rgb_buf=mask(rgb_buf, 0.0),
+            prob_grid=mask(prob_grid, 0.0),
+            scanned_gt=mask(scanned_gt, 0.0),
+            tri_grid=mask(tri, 0.0),
+            coverage=mask(ratio, 0.0),
+            episode_len=torch.where(done, 0, episode_len),
+            scene_id=state.scene_id,
+            ep_rew_coverage=mask(ep_rew_cov, 0.0),
+            ep_rew_short_path=mask(ep_rew_sp, 0.0),
+            ep_rew_termination=mask(ep_rew_term, 0.0),
+            ep_reward=mask(ep_reward, 0.0),
+        )
+        out = StepOutput(
+            obs=obs,
+            reward=rew,
+            done=done,
+            time_out=time_out,
+            coverage=ratio,
+            collision=collision,
+            ep_reward=ep_reward * d_f,
+            ep_length=episode_len.float() * d_f,
+            ep_rew_coverage=ep_rew_cov * d_f,
+            ep_rew_short_path=ep_rew_sp * d_f,
+            ep_rew_termination=ep_rew_term * d_f,
+        )
+        return new_state, out

@@ -1,0 +1,88 @@
+"""Float32 arithmetic that rounds where the JAX reference rounds.
+
+The JAX package runs its env step under ``jit``, and XLA on the CPU
+contracts ``a * b + c`` inside one fusion into a fused multiply-add (one
+rounding), turns ``x / constant`` into a product with the float32
+reciprocal, evaluates its small ``[P, 3] x [3, 3]`` projection dot in a
+fixed rounding order, and has its own ``sin``/``cos``.  Pixel and voxel
+indices come from ``floor`` of such values, so a one-ulp difference can
+move a point to the next pixel.  The helpers below reproduce those
+roundings with float64 intermediates, on the CPU and on the card alike, so
+the port lands on the same pixels and voxels as the reference
+(tests/test_torch_fp32.py holds each helper to XLA's result).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def full_fp32() -> None:
+    """Keep float32 matmuls and convolutions in full float32 on the card.
+
+    PyTorch's default lets cuDNN run float32 convolutions in TF32, which
+    keeps about three decimal digits and would put the HybridEncoder's
+    Conv3d three digits off the reference.  Called by the env and policy
+    constructors, the port's entry points."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of float32 tensors, rounded once to float32 as a fused
+    multiply-add rounds it.  The float32 product is exact in float64; the
+    float64 sum is then rounded to float32, which differs from a true FMA
+    only when the float64 sum lands exactly on a float32 rounding
+    midpoint."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def cos_sin(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Correctly rounded float32 cos and sin (float64, then rounded).
+    On the env's discrete action grid XLA's float32 cos/sin return the
+    correctly rounded values, where PyTorch's float32 kernels differ by an
+    ulp at some angles."""
+    x64 = x.double()
+    return torch.cos(x64).float(), torch.sin(x64).float()
+
+
+def rotate(d: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """``d @ r`` for d [..., P, 3] and r [..., 3, 3], rounded as XLA's CPU
+    dot rounds this shape: output columns x and y sum the rounded products
+    left to right, column z accumulates them in a chain of fused
+    multiply-adds.  Returns [..., P, 3] float32."""
+    d64 = d.double()
+    r64 = r.double()[..., None, :, :]                 # [..., 1, 3, 3]
+
+    def prod(k: int, i: int) -> torch.Tensor:        # exact in float64
+        return d64[..., k] * r64[..., k, i]
+
+    x = (prod(0, 0).float() + prod(1, 0).float()) + prod(2, 0).float()
+    y = (prod(0, 1).float() + prod(1, 1).float()) + prod(2, 1).float()
+    z = prod(0, 2).float()
+    z = (prod(1, 2) + z.double()).float()
+    z = (prod(2, 2) + z.double()).float()
+    return torch.stack([x, y, z], dim=-1)
+
+
+def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` for a constant c, as XLA compiles it: a product with the
+    float32 reciprocal of c."""
+    return x * torch.tensor(c, dtype=torch.float32, device=x.device).reciprocal()
+
+
+def mean3(x: torch.Tensor) -> torch.Tensor:
+    """Mean over a last axis of 3 as XLA compiles ``jnp.mean``: summed left
+    to right, times the float32 reciprocal of 3.  The same on every device
+    (a library reduction may sum in another order)."""
+    return div_const(x[..., 0] + x[..., 1] + x[..., 2], 3.0)
+
+
+def mean3_of_scaled(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``mean(x / c)`` over a last axis of 3 as XLA compiles it: the
+    scaling by the reciprocal of c is fused into the reduction, each term
+    added to the running sum by a fused multiply-add."""
+    r = torch.tensor(c, dtype=torch.float32, device=x.device).reciprocal()
+    acc = x[..., 0] * r
+    acc = fma(x[..., 1], r, acc)
+    acc = fma(x[..., 2], r, acc)
+    return div_const(acc, 3.0)

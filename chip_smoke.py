@@ -1,25 +1,49 @@
 """Smoke run of the PyTorch port on one CUDA card (an H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cache-pairs 10    # only the cache A/B, below
 
 Phases, in order; any failure raises and the script exits non-zero:
 1. a CUDA card must be present; print its name and power limit, the torch
    version and nvcc's;
-2. build the gather kernel from gennbv_tpu_torch/csrc with nvcc (timed);
-3. at the rollout's shapes (256 envs, 128x128, 11264 and 8000 points) hold
-   the kernel bit-equal to its plain PyTorch version and time both;
+2. build the three kernels from gennbv_tpu_torch/csrc, one nvcc process per
+   source, all started together (each timed);
+3. hold each kernel bit-equal to its plain PyTorch version at the shapes of
+   the paths below and time both, with the bound of the card and one
+   PyTorch library call where one computes the same function:
+   - the 400x400 held-out eval (50 envs, the 50 eval scenes' surface
+     capacity Q, 20^3 grid): the fused splat z-buffer + visibility, the hit
+     scatter and the carve gather;
+   - the 128x128 flagship rollout (256 envs, Q = 11264): the same three;
+   and the gather once more on an image with planted values (bf16 ties,
+   -0.0, a negative, empty pixels);
 4. run the mapping golden on the card (tests/goldens/mapping_golden.npz,
-   tests/test_goldens.py's tolerances) with the kernel doing the lookups;
+   tests/test_goldens.py's tolerances) through the three kernels;
 5. the rollout at the flagship size: 256 procedural scenes, 256 envs,
    128x128 camera, R=64 render grid, full-width HybridEncoder policy from a
    seeded generator, reset + collect(n_steps=128).  Checks the outputs and
-   that the kernel ran exactly twice per env step; prints env-steps/s.
+   that each kernel ran once per env step; prints env-steps/s and the
+   device-time breakdown of 8 steps (torch.profiler);
+6. the held-out eval at full size: 50 procedural scenes of seed 100, R=64,
+   400x400 camera, eval_env_config (30-step episodes, coverage reward
+   only), renderer.zbuf_impl=pallas and scatter_impl=pallas, the policy in
+   deterministic mode.  Checks the exact launch count of each kernel
+   (init-view cache, reset, 30 steps), the results, and that the same eval
+   with zbuf_impl=mxu (no init-view cache; the same kernels) gives
+   identical per-env coverage, AUC and rewards; prints eval env-steps/s and
+   the device-time breakdown of one eval.
 The last two lines of stdout are the kernel summary with the card's name
 and power limit before them, then the result line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
+
+With --cache-pairs N the script runs phases 1-2 and then only N interleaved
+pairs of the full-size eval with and without the init-view cache, and
+prints their env-steps/s; it prints no result line.
 """
 from __future__ import annotations
 
+import argparse
+import concurrent.futures
 import json
 import os
 import statistics
@@ -29,18 +53,46 @@ import time
 import numpy as np
 import torch
 
-from gennbv_tpu_torch import config
-from gennbv_tpu_torch.algo import rollout
+from gennbv_tpu_torch import config, spec
+from gennbv_tpu_torch.algo import evaluation, rollout
 from gennbv_tpu_torch.env import ReconEnv, make_scenes
+from gennbv_tpu_torch.env import scene as scene_lib
 from gennbv_tpu_torch.models.policy import ActorCriticPolicy
-from gennbv_tpu_torch.ops import _cuda, gather
+from gennbv_tpu_torch.ops import (_cuda, camera, carve, fp32, fused_splat,
+                                  gather, scatter, splat, voxel)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "mapping_golden.npz")
 N_ENVS, HW, RES, N_STEPS, GAMMA = 256, 128, 64, 128, 0.99
-# points per env of the two gathers of an env step: visibility (the surface
-# capacity Q of the 256 seed-0 scenes at R=64) and carve (G^3)
-GATHER_Q = (11264, 8000)
+# surface capacity Q of the 256 seed-0 scenes at R=64 (the fused splat's points)
+ROLLOUT_Q = 11264
+EVAL_HW, EVAL_SEED = 400, 100
+G = spec.GRID_SIZE                       # the 20^3 grid; the carve gathers G^3
+# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s,
+# and float32 operations/s outside the tensor cores, the rate the bounds
+# below charge every arithmetic, compare and integer operation at
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+KERNELS = {
+    "gather_image": ("gennbv_tpu_torch/csrc/gather_image.cu",
+                     "gennbv_tpu/ops/pallas_gather.py:37", gather.gather_image),
+    "scatter_cells_any": ("gennbv_tpu_torch/csrc/scatter_cells_any.cu",
+                          "gennbv_tpu/ops/pallas_scatter.py:47",
+                          scatter.scatter_cells_any),
+    "zbuf_visible": ("gennbv_tpu_torch/csrc/zbuf_visible.cu",
+                     "gennbv_tpu/ops/pallas_splat.py:80",
+                     fused_splat.zbuf_visible),
+}
+
+
+# the __global__ functions each wrapper launches (csrc/*.cu)
+PORT_KERNEL_FUNCTIONS = {
+    "gather_image": ("gather_image_kernel",),
+    "scatter_cells_any": ("scatter_cells_any_kernel",),
+    "zbuf_visible": ("zrange_kernel", "key_kernel", "pool_kernel",
+                     "visible_kernel"),
+}
 
 
 def card_line() -> str:
@@ -48,6 +100,15 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def reset_launches() -> None:
+    for _, _, fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {name: fn.launches for name, (_, _, fn) in KERNELS.items()}
 
 
 def phase_device() -> str:
@@ -63,20 +124,28 @@ def phase_device() -> str:
     return card
 
 
-def phase_build() -> float:
-    so = _cuda.library_path("gather_image")
-    if so.exists():
-        so.unlink()                      # always build from the checkout
-    t0 = time.perf_counter()
-    _cuda.load_library("gather_image")
-    secs = time.perf_counter() - t0
-    print(f"build: gather_image.cu -> {so.name} in {secs:.2f} s")
+def phase_build() -> dict:
+    """Each kernel's library built afresh from the checkout, the three nvcc
+    processes at once; returns the seconds each build took."""
+    def build(name: str) -> float:
+        so = _cuda.library_path(name)
+        if so.exists():
+            so.unlink()
+        t0 = time.perf_counter()
+        _cuda.load_library(name)
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        secs = dict(zip(KERNELS, pool.map(build, KERNELS)))
+    for name, s in secs.items():
+        print(f"build: {name}.cu in {s:.2f} s (three builds at once)")
     return secs
 
 
 def _time_ms(fn, trials: int = 21, calls: int = 10) -> float:
     """Median over trials of the mean time of `calls` back-to-back calls,
-    from CUDA events, after a warm-up."""
+    from CUDA events, after a warm-up.  Back to back, the inputs stay in
+    L2 where they fit, as they do when the env step has just made them."""
     for _ in range(5):
         fn()
     times = []
@@ -92,32 +161,159 @@ def _time_ms(fn, trials: int = 21, calls: int = 10) -> float:
     return statistics.median(times)
 
 
-def phase_kernel() -> dict:
-    """Kernel vs plain version at the rollout's shapes, bit for bit."""
+def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time in ms: the larger of the bytes over the HBM rate and
+    the operations over the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _case(label, kernel, plain, library, nbytes, ops) -> dict:
+    """Kernel vs plain version, bit for bit, then timed beside the library
+    call and the bound."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(
+                f"{label}: kernel differs from plain: max "
+                f"{float((g.float() - w.float()).abs().max())}")
+        err = max(err, float((g.float() - w.float()).abs().max()))
+    bound_ms, bound_by = _bound(nbytes, ops)
+    res = {"max_abs_err": err, "ms": _time_ms(kernel), "plain_ms": _time_ms(plain),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None if library is None else _time_ms(library)}
+    lib = "none" if library is None else f"{res['library_ms']:.4f} ms"
+    print(f"{label}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+          f"library {lib}, bound {bound_ms:.4f} ms ({bound_by}) "
+          "(median, CUDA events)")
+    return res
+
+
+def gather_case(label, img, vi, ui) -> dict:
+    n, h, w = img.shape
+    q = vi.shape[1]
+    flat = vi.long() * w + ui.long()
+    img16 = img.to(torch.bfloat16).float().reshape(n, h * w)
+    # what the data needs: each distinct pixel read once (4 B), the two
+    # index arrays (8 B a point), the output (4 B a point)
+    env = torch.arange(n, device=img.device)[:, None] * (h * w)
+    distinct = torch.unique(flat + env).numel()
+    return _case(
+        label,
+        lambda: (gather.gather_image(img, vi, ui),),
+        lambda: (gather.gather_image_ref(img, vi, ui),),
+        # library: one torch.gather on the image already rounded to bf16,
+        # with the flat indices precomputed (excludes both)
+        lambda: torch.gather(img16, 1, flat),
+        4 * distinct + 12 * n * q, 2 * n * q)
+
+
+def scatter_case(label, idx, valid) -> dict:
+    n, q, _ = idx.shape
+    flat = (idx[..., 0].long() * G + idx[..., 1]) * G + idx[..., 2]
+    flat = torch.where(valid, flat, G ** 3)
+    grid = torch.zeros(n, G ** 3 + 1, device=idx.device)
+    nvalid = int(valid.sum())
+    # the validity of every point (1 B), the indices of the valid ones
+    # (12 B), the grid written once (4 B a cell); a flat index and a
+    # store per valid point
+    return _case(
+        label,
+        lambda: (scatter.scatter_cells_any(idx, valid, G),),
+        lambda: (scatter.scatter_cells_any_ref(idx, valid, G),),
+        # library: one scatter_ of 1.0 into a zeroed grid with a spare
+        # cell, the flat indices precomputed (excludes both)
+        lambda: grid.scatter_(1, flat, 1.0),
+        n * q + 12 * nvalid + 4 * n * G ** 3, 5 * nvalid)
+
+
+def splat_case(label, vic, uic, z, ok, veps, h, w, depth_max) -> dict:
+    n, q = z.shape
+    nvalid = int(ok.sum())
+    # bytes: the validity of every point, pixel and depth of the valid ones,
+    # the slack; the z-buffer and the visibility written once.  Operations:
+    # 19 per valid point (z range, digits, key, visibility compare) and 16
+    # per pixel (9-key min, decode)
+    return _case(
+        label,
+        lambda: fused_splat.zbuf_visible(vic, uic, z, ok, veps, h, w, depth_max),
+        lambda: fused_splat.zbuf_visible_ref(vic, uic, z, ok, veps, h, w,
+                                             depth_max),
+        None,            # no single PyTorch call computes this function
+        n * q + 12 * nvalid + 4 * n + 4 * n * h * w + n * q,
+        19 * nvalid + 16 * n * h * w)
+
+
+def _step_inputs(scenes, cam: config.CameraConfig):
+    """What an env step hands the three kernels: every scene seen from a
+    pose of the discrete action grid drawn from a seeded numpy
+    generator."""
+    n = scenes.num_scenes
+    dev = scenes.surf_pts.device
+    rng = np.random.default_rng(0)
+    acts = np.stack([rng.integers(0, k, n) for k in spec.NVEC], -1)
+    poses = fp32.fma(torch.as_tensor(acts, dtype=torch.float32, device=dev),
+                     torch.as_tensor(spec.ACTION_UNIT, device=dev),
+                     torch.as_tensor(spec.CLIP_POSE_LOW, device=dev))
+    r, t = camera.pose_to_c2w(poses, cam.z_offset)
+    k = torch.as_tensor(camera.intrinsics(cam.height, cam.width,
+                                          cam.horizontal_fov_deg), device=dev)
+    vic, uic, z, ok = splat.project_px(scenes.surf_pts, scenes.surf_mask, k,
+                                       r, t, cam.height, cam.width)
+    z = z.contiguous()
+    veps = fp32.mean3_of_scaled(scenes.box_hi - scenes.box_lo, scenes.grid_res)
+    zbuf, visible = fused_splat.zbuf_visible_ref(vic, uic, z, ok, veps,
+                                                 cam.height, cam.width,
+                                                 cam.depth_max)
+    idx, in_bounds = voxel.points_to_voxel_idx(
+        scenes.surf_pts, visible, scenes.range_gt, scenes.voxel_size)
+    centers = scene_lib.voxel_centers(scenes.range_gt, scenes.voxel_size, G)
+    cvi, cui, _, _ = carve.project_centers_px(centers, k, r, t, cam.height,
+                                              cam.width)
+    return ((vic, uic, z, ok, veps), (idx.contiguous(), in_bounds.contiguous()),
+            (zbuf.reshape(n, cam.height, cam.width), cvi, cui))
+
+
+def planted_gather_case(q: int) -> dict:
+    """The gather at the rollout's image shape [256, 128, 128] and q random
+    in-range pixels, on an image with planted values: bf16 round-to-even
+    ties (1 + 2^-8, 1 + 3 * 2^-8), -0.0, a negative, and a block of empty
+    pixels at depth_max."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     img = torch.rand(N_ENVS, HW, HW, device="cuda", generator=gen) * 30.0
     img[:, :8, :8] = 50.0                                    # empty pixels
     img[:, 8, :4] = torch.tensor([1 + 2 ** -8, 1 + 3 * 2 ** -8, -0.0, -3.7])
-    ms = plain_ms = err = 0.0
-    for q in GATHER_Q:
-        vi = torch.randint(0, HW, (N_ENVS, q), device="cuda", dtype=torch.int32,
-                           generator=gen)
-        ui = torch.randint(0, HW, (N_ENVS, q), device="cuda", dtype=torch.int32,
-                           generator=gen)
-        got = gather.gather_image(img, vi, ui)
-        want = gather.gather_image_ref(img, vi, ui)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"gather kernel differs from plain at Q={q}: "
-                                 f"max {float((got - want).abs().max())}")
-        err = max(err, float((got - want).abs().max()))
-        k_ms = _time_ms(lambda: gather.gather_image(img, vi, ui))
-        p_ms = _time_ms(lambda: gather.gather_image_ref(img, vi, ui))
-        print(f"gather [{N_ENVS}x{HW}x{HW}] x [{N_ENVS}x{q}]: kernel "
-              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms (median, CUDA events)")
-        ms += k_ms
-        plain_ms += p_ms
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    vi, ui = (torch.randint(0, HW, (N_ENVS, q), device="cuda",
+                            dtype=torch.int32, generator=gen) for _ in range(2))
+    # every env reads an empty pixel and each planted value
+    vi[:, :5] = torch.tensor([0, 8, 8, 8, 8], dtype=torch.int32)
+    ui[:, :5] = torch.tensor([0, 0, 1, 2, 3], dtype=torch.int32)
+    return gather_case(f"gather_image [{N_ENVS}x{HW}x{HW}] x [{N_ENVS}x{q}] "
+                       "(planted values)", img, vi, ui)
+
+
+def phase_kernels(eval_scenes, rollout_scenes) -> dict:
+    """Each kernel against its plain version on the inputs of a step of
+    the eval and of the rollout; returns {kernel: {path: timings}}.  The
+    gather is also held bit-equal on an image with planted values."""
+    out = {name: {} for name in KERNELS}
+    for path, scenes, hw in (("eval", eval_scenes, EVAL_HW),
+                             ("rollout", rollout_scenes, HW)):
+        cam = config.CameraConfig(height=hw, width=hw)
+        n, q = scenes.surf_mask.shape
+        splat_in, scatter_in, gather_in = _step_inputs(scenes, cam)
+        out["zbuf_visible"][path] = splat_case(
+            f"{path}: zbuf_visible [{n}x{q}] -> [{n}x{hw}x{hw}]", *splat_in,
+            hw, hw, cam.depth_max)
+        out["scatter_cells_any"][path] = scatter_case(
+            f"{path}: scatter_cells_any [{n}x{q}] -> [{n}x{G}^3]", *scatter_in)
+        out["gather_image"][path] = gather_case(
+            f"{path}: gather_image [{n}x{hw}x{hw}] x [{n}x{G ** 3}]", *gather_in)
+    planted_gather_case(G ** 3)
+    return out
 
 
 def phase_golden() -> None:
@@ -126,9 +322,9 @@ def phase_golden() -> None:
         num_envs=4, camera=config.CameraConfig(height=24, width=24),
         renderer=config.RendererConfig(resolution=24),
         scene=config.SceneConfig(num_scenes=2, seed=7), max_episode_length=6)
-    env = ReconEnv(cfg, make_scenes(cfg.scene, cfg.renderer.resolution, "cuda"))
+    env = ReconEnv(cfg, make_scenes(cfg.scene, cfg.renderer.resolution))
     want = np.load(GOLDEN)
-    before = gather.gather_image.launches
+    reset_launches()
     state, out = env.reset(4)
     obs, rew, cov = [out.obs], [], []
     for a in want["actions"]:
@@ -138,9 +334,9 @@ def phase_golden() -> None:
         rew.append(out.reward)
         cov.append(out.coverage)
     torch.cuda.synchronize()
-    launches = gather.gather_image.launches - before
-    if launches != 2 * (1 + len(want["actions"])):
-        raise AssertionError(f"golden run launched the gather {launches} times")
+    expect = {name: 1 + len(want["actions"]) for name in KERNELS}
+    if launches() != expect:
+        raise AssertionError(f"golden run launched {launches()}, expected {expect}")
     got = {"obs": obs, "rewards": rew, "coverage": cov}
     for name, tol in (("coverage", 1e-6), ("rewards", 1e-4), ("obs", 1e-4)):
         np.testing.assert_allclose(torch.stack(got[name]).cpu().numpy(),
@@ -150,34 +346,89 @@ def phase_golden() -> None:
     print("golden: matches tests/goldens/mapping_golden.npz on the card")
 
 
-def _flagship():
-    cfg = config.EnvConfig(
+def profile(label: str, fn, unprofiled_s: float | None = None) -> dict:
+    """Runs fn once under torch.profiler and prints the device's busy
+    share of the wall time and the kernels that took the most of it.  The
+    profiler slows the host; given the wall time of fn without it, the
+    busy share is also printed against that.  Returns the device time in
+    microseconds of each of the port's kernels, by kernel function."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise AssertionError(f"{label}: the profiler saw no device activity")
+    busy, end = 0.0, float("-inf")
+    by_name: dict[str, float] = {}
+    for s, e, name in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+    unprofiled = ("" if unprofiled_s is None else
+                  f"; {100 * busy / (unprofiled_s * 1e6):.1f}% of the "
+                  f"{unprofiled_s * 1e3:.3f} ms it takes unprofiled")
+    print(f"{label}: device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
+          f"wall ({100 * busy / wall_us:.1f}%{unprofiled}), {len(spans)} device "
+          "activities; top by device time:")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {us / 1e3:9.3f} ms {100 * us / busy:5.1f}%  {name[:90]}")
+    # the port's own kernels: csrc/*.cu keep them in anonymous namespaces
+    ours: dict[str, list[float]] = {}
+    for s, e, name in spans:
+        if name.startswith("(anonymous namespace)::"):
+            ours.setdefault(name.split("::")[1].split("(")[0], []).append(e - s)
+    for name, times in ours.items():
+        print(f"  port kernel {name}: {len(times)} launches, "
+              f"{sum(times) / 1e3:.3f} ms device time, "
+              f"{sum(times) / len(times) / 1e3:.4f} ms each")
+    return {name: sum(times) for name, times in ours.items()}
+
+
+def _device_ms_per_call(device_us: dict, calls: int) -> dict:
+    """The profiled device time of each wrapper over `calls` calls, per
+    call (the fused splat's call is its four launches)."""
+    return {name: sum(device_us.get(k, 0.0) for k in fns) / calls / 1e3
+            for name, fns in PORT_KERNEL_FUNCTIONS.items()}
+
+
+def flagship_config() -> config.EnvConfig:
+    return config.EnvConfig(
         num_envs=N_ENVS, camera=config.CameraConfig(height=HW, width=HW),
         renderer=config.RendererConfig(resolution=RES),
         scene=config.SceneConfig(num_scenes=N_ENVS, seed=0))
+
+
+def make_path_scenes(cfg: config.EnvConfig, label: str):
     t0 = time.perf_counter()
-    scenes = make_scenes(cfg.scene, RES, "cuda")
-    print(f"scenes: {N_ENVS} procedural at R={RES}, Q={scenes.surf_pts.shape[1]}"
-          f" in {time.perf_counter() - t0:.1f} s")
-    if scenes.surf_pts.shape[1] != GATHER_Q[0]:
-        raise AssertionError("phase 3 timed the gather at another Q than the "
-                             f"rollout's {scenes.surf_pts.shape[1]}")
+    scenes = make_scenes(cfg.scene, RES)
+    print(f"scenes: {scenes.num_scenes} {label} procedural (seed "
+          f"{cfg.scene.seed}) at R={RES}, Q={scenes.surf_pts.shape[1]} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return scenes
+
+
+def phase_rollout(card: str, scenes) -> tuple[dict, dict]:
+    cfg = flagship_config()
+    if scenes.surf_pts.shape[1] != ROLLOUT_Q:
+        raise AssertionError(f"the flagship scenes' Q is "
+                             f"{scenes.surf_pts.shape[1]}, not {ROLLOUT_Q}")
     env = ReconEnv(cfg, scenes)
     policy = ActorCriticPolicy(config.ModelConfig(),
-                               torch.Generator(device="cuda").manual_seed(1),
-                               device="cuda")
-    return cfg, env, policy
-
-
-def phase_rollout(card: str) -> int:
-    cfg, env, policy = _flagship()
+                               torch.Generator(device="cuda").manual_seed(1))
     # warm-up (allocator, cuDNN algorithm choice), outside the counted run
     state, out = env.reset(N_ENVS)
     rollout.collect(env, policy, state, out.obs,
                     torch.Generator(device="cuda").manual_seed(3), 2, GAMMA)
     torch.cuda.synchronize()
 
-    gather.gather_image.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state, out = env.reset(N_ENVS)
@@ -187,11 +438,11 @@ def phase_rollout(card: str) -> int:
         N_STEPS, GAMMA)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = gather.gather_image.launches
+    counts = launches()
 
-    if launches != 2 * (1 + N_STEPS):
-        raise AssertionError(f"gather launched {launches} times, expected "
-                             f"{2 * (1 + N_STEPS)}")
+    expect = {name: 1 + N_STEPS for name in KERNELS}
+    if counts != expect:
+        raise AssertionError(f"rollout launched {counts}, expected {expect}")
     for name, x in (*batch._asdict().items(), *stats._asdict().items()):
         if x.is_floating_point() and not torch.isfinite(x).all():
             raise AssertionError(f"non-finite {name}")
@@ -206,28 +457,160 @@ def phase_rollout(card: str) -> int:
     tri = batch.obs[..., 600:8600]
     assert ((tri == -1) | (tri == 0) | (tri == 1)).all()
 
-    steps = N_ENVS * N_STEPS
+    n_env_steps = N_ENVS * N_STEPS
     print(f"rollout: reset {t1 - t0:.3f} s, collect {N_STEPS} steps x {N_ENVS} "
-          f"envs in {t2 - t1:.3f} s = {steps / (t2 - t1):.1f} env-steps/s "
+          f"envs in {t2 - t1:.3f} s = {n_env_steps / (t2 - t1):.1f} env-steps/s "
           f"[{card}]; mean coverage at the last step "
           f"{float(stats.coverage[-1].mean()):.4f}, "
           f"{int(stats.num_dones.sum())} episodes ended, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    return launches
+    device_us = profile("rollout, 8 collect steps", lambda: rollout.collect(
+        env, policy, state, obs, torch.Generator(device="cuda").manual_seed(4),
+        8, GAMMA), (t2 - t1) * 8 / N_STEPS)
+    return counts, _device_ms_per_call(device_us, 8)
+
+
+def eval_config(zbuf_impl: str) -> config.EnvConfig:
+    """The held-out eval of the flagship recipe under the reference's
+    400x400 camera (train_eval_gennbv.py, runner.eval_camera)."""
+    train = config.EnvConfig(
+        camera=config.CameraConfig(height=EVAL_HW, width=EVAL_HW),
+        renderer=config.RendererConfig(resolution=RES, zbuf_impl=zbuf_impl,
+                                       scatter_impl="pallas"),
+        scene=config.SceneConfig(num_scenes=spec.EVAL_NUM_ENVS, seed=EVAL_SEED))
+    return config.eval_env_config(train)
+
+
+def run_eval(cfg: config.EnvConfig, scenes, policy):
+    """Builds the env (and its init-view cache) and evaluates; returns
+    (result, kernel launches, seconds of the evaluate call)."""
+    reset_launches()
+    env = ReconEnv(cfg, scenes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = evaluation.evaluate(env, policy, compute_accuracy=False)
+    secs = time.perf_counter() - t0            # evaluate ends on the host
+    return res, launches(), secs
+
+
+def check_eval(res: evaluation.EvalResult, max_len: int) -> None:
+    for name, x in res._asdict().items():
+        if name.startswith("accuracy") or name in ("mean_accuracy_cm",
+                                                    "gt_unseen_frac"):
+            continue
+        if not np.isfinite(x).all():
+            raise AssertionError(f"eval: non-finite {name}")
+    cov = res.per_env_coverage
+    assert ((cov >= 0) & (cov <= 1)).all(), "coverage in [0, 1]"
+    assert 0 < res.mean_init_coverage <= res.mean_final_coverage <= 1
+    assert 1 <= res.mean_ep_length <= max_len
+    # the eval reward is the coverage gain; the init step's is not counted
+    assert res.mean_reward <= res.mean_final_coverage + 1e-4
+
+
+def phase_eval(card: str, scenes) -> tuple[dict, dict]:
+    cfg = eval_config("pallas")
+    max_len = cfg.max_episode_length
+    policy = ActorCriticPolicy(config.ModelConfig(),
+                               torch.Generator(device="cuda").manual_seed(1))
+    run_eval(cfg, scenes, policy)                  # warm-up, not counted
+    res, counts, secs = run_eval(cfg, scenes, policy)
+    # init-view cache, reset, and one launch per step
+    expect = {name: 2 + max_len for name in KERNELS}
+    if counts != expect:
+        raise AssertionError(f"eval launched {counts}, expected {expect}")
+    check_eval(res, max_len)
+    steps = 1 + max_len
+    n_env_steps = cfg.num_envs * steps
+    print(f"eval: {cfg.num_envs} envs x (reset + {max_len} steps) at "
+          f"{EVAL_HW}x{EVAL_HW}, R={RES}, in {secs:.3f} s = "
+          f"{n_env_steps / secs:.1f} env-steps/s [{card}]; mean reward "
+          f"{res.mean_reward:.4f}, AUC {res.mean_auc:.4f}, final coverage "
+          f"{res.mean_final_coverage:.4f}, init coverage "
+          f"{res.mean_init_coverage:.4f}, curve AUC {res.mean_curve_auc:.4f}, "
+          f"episode length {res.mean_ep_length:.1f}")
+
+    # without the init-view cache: the same kernels, once per step
+    mxu, mxu_counts, mxu_secs = run_eval(eval_config("mxu"), scenes, policy)
+    expect = {name: steps for name in KERNELS}
+    if mxu_counts != expect:
+        raise AssertionError(f"mxu eval launched {mxu_counts}, expected {expect}")
+    for name in ("per_env_coverage", "per_env_auc", "mean_reward",
+                 "std_reward", "mean_ep_length", "mean_init_coverage"):
+        if not np.array_equal(getattr(res, name), getattr(mxu, name)):
+            raise AssertionError(f"eval: zbuf_impl=pallas and mxu differ in "
+                                 f"{name}")
+    print(f"eval: zbuf_impl=mxu (no init-view cache) on the same scenes and "
+          f"weights gives identical per-env coverage, AUC and rewards "
+          f"({n_env_steps / mxu_secs:.1f} env-steps/s [{card}])")
+
+    env = ReconEnv(cfg, scenes)
+    device_us = profile(
+        "eval, one evaluate call (pallas)",
+        lambda: evaluation.evaluate(env, policy, compute_accuracy=False), secs)
+    return counts, _device_ms_per_call(device_us, steps)
+
+
+def phase_cache_pairs(card: str, scenes, pairs: int) -> None:
+    """The full-size eval with the init-view cache (zbuf_impl=pallas) and
+    without it (mxu), the same kernels on both, in interleaved pairs."""
+    policy = ActorCriticPolicy(config.ModelConfig(),
+                               torch.Generator(device="cuda").manual_seed(1))
+    envs = {impl: ReconEnv(eval_config(impl), scenes) for impl in ("pallas", "mxu")}
+    n_env_steps = spec.EVAL_NUM_ENVS * (1 + envs["pallas"].cfg.max_episode_length)
+    for env in envs.values():                      # warm-up
+        evaluation.evaluate(env, policy, compute_accuracy=False)
+    rates = {impl: [] for impl in envs}
+    for pair in range(pairs):
+        for impl in (("pallas", "mxu") if pair % 2 == 0 else ("mxu", "pallas")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            evaluation.evaluate(envs[impl], policy, compute_accuracy=False)
+            rates[impl].append(n_env_steps / (time.perf_counter() - t0))
+    for impl, r in rates.items():
+        q = statistics.quantiles(r, n=4)
+        print(f"cache A/B, {impl} ({'with' if impl == 'pallas' else 'without'} "
+              f"the init-view cache): {pairs} runs, median "
+              f"{statistics.median(r):.1f} env-steps/s, quartiles {q[0]:.1f} / "
+              f"{q[2]:.1f} [{card}]: {', '.join(f'{x:.1f}' for x in r)}")
+    wins = sum(p > m for p, m in zip(rates["pallas"], rates["mxu"]))
+    print(f"cache A/B: with the cache faster in {wins} of {pairs} pairs")
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--cache-pairs", type=int, default=0,
+                        help="run only this many interleaved pairs of the "
+                        "eval with and without the init-view cache")
+    args = parser.parse_args()
     card = phase_device()
+    t_start = time.perf_counter()
     phase_build()
-    timing = phase_kernel()
+    eval_scenes = make_path_scenes(eval_config("pallas"), "held-out")
+    if args.cache_pairs:
+        phase_cache_pairs(card, eval_scenes, args.cache_pairs)
+        return
+    rollout_scenes = make_path_scenes(flagship_config(), "flagship")
+    timing = phase_kernels(eval_scenes, rollout_scenes)
     phase_golden()
-    launches = phase_rollout(card)
-    kernels = [{
-        "name": "gather_image", "route": "cuda",
-        "source": "gennbv_tpu_torch/csrc/gather_image.cu",
-        "replaces": "gennbv_tpu/ops/pallas_gather.py:37",
-        "launches": launches, **timing,
-    }]
+    rollout_counts, rollout_ms = phase_rollout(card, rollout_scenes)
+    eval_counts, eval_ms = phase_eval(card, eval_scenes)
+    by_path = {"rollout": rollout_counts, "eval": eval_counts}
+    kernels = []
+    for name, (source, replaces, _) in KERNELS.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(c[name] for c in by_path.values()),
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            # times at the eval's shapes; the rollout's beside them
+            **timing[name]["eval"],
+            # the profiler's device time per call in each path's run
+            "device_ms": eval_ms[name],
+            "rollout": {**timing[name]["rollout"],
+                        "device_ms": rollout_ms[name]}})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the device "
+          "check")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

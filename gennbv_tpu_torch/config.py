@@ -12,7 +12,7 @@ construction (so also from ``apply_overrides``); they are never silently
 ignored.  ``gather_impl`` and ``scatter_impl`` are accepted for config
 compatibility but select nothing: in the port, the device of the tensors
 picks the hand-written CUDA kernel (CUDA tensors) or its plain PyTorch
-version (CPU tensors).
+version (CPU tensors), whatever they say.
 """
 from __future__ import annotations
 
@@ -43,7 +43,11 @@ class CameraConfig:
 class RendererConfig:
     """Depth renderer.  The port implements mode "splat" with the
     integer-key-min z-buffer (the semantics of the JAX package's
-    ``zbuf_impl="mxu"`` radix min) and the 3x3 footprint."""
+    ``zbuf_impl="mxu"`` radix min) and the 3x3 footprint.
+    ``zbuf_impl="pallas"`` turns on the batched splat with the per-scene
+    init-view cache (env/recon_env.py), as it does in the JAX package; it
+    does not pick the z-buffer's implementation, which the device does
+    (ops/splat.py)."""
     mode: str = "splat"
     resolution: int = 64          # render-grid voxels per axis (R)
     footprint: int = 1            # splat radius in pixels (1 -> 3x3)
@@ -60,10 +64,9 @@ class RendererConfig:
         if self.mode != "splat":
             raise _unsupported(f"renderer.mode={self.mode!r}",
                                "Queue 1 item 10")
-        if self.zbuf_impl != "mxu":
-            item = ("Queue 2 item 3" if self.zbuf_impl == "pallas"
-                    else "Queue 1 item 10")
-            raise _unsupported(f"renderer.zbuf_impl={self.zbuf_impl!r}", item)
+        if self.zbuf_impl not in ("mxu", "pallas"):
+            raise _unsupported(f"renderer.zbuf_impl={self.zbuf_impl!r}",
+                               "Queue 1 item 10")
         if self.merge_vis_carve:
             raise _unsupported("renderer.merge_vis_carve=True",
                                "Queue 1 item 10")

@@ -17,9 +17,16 @@ Reference semantics kept (env_train_gennbv.py, env_train_base.py):
   (only_positive), then the termination bonus added after the clip;
 - termination: collision | timeout | coverage > threshold.
 
-Not ported yet (ROADMAP Queue 1 item 10): the batched splat path with the
-init-view cache, and the "dda"/"replay"/"callback" renderers; the config
-refuses them at construction.
+With ``renderer.zbuf_impl="pallas"`` the step takes the JAX package's
+batched splat path: fresh envs are masked out of the splat and their
+products come from the per-scene init-view cache (``_splat_step``).  That
+is all the setting selects here: the splat itself runs the fused CUDA
+kernel on a CUDA device and its plain version on the CPU on either path
+(``ops/splat.py``).
+
+Not ported yet (ROADMAP Queue 1 item 10): survivor compaction, row
+banding, the merged vis/carve gather, and the "dda"/"replay"/"callback"
+renderers; the config refuses them at construction.
 """
 from __future__ import annotations
 
@@ -88,6 +95,15 @@ class ReconEnv:
         self.num_actions = spec.ACTION_DIM
         self.obs_dim = (cfg.pose_buf_len * spec.ACTION_DIM + g ** 3
                         + cfg.rgb_k * cfg.rgb_h * cfg.rgb_w)
+        # Init-view cache (the JAX package's batched splat path, which
+        # renderer.zbuf_impl="pallas" turns on there too): fresh envs take
+        # the forced top-down init view, which sees most of the scene;
+        # their splat is masked out and their hit, carve and grayscale
+        # products come from a per-scene cache built here, once.
+        self._use_init_cache = cfg.renderer.zbuf_impl == "pallas"
+        self._init_cache = None
+        if self._use_init_cache:
+            self._init_cache = self._build_init_step_cache()
 
     # ------------------------------------------------------------------
     def init_state(self, num_envs: int,
@@ -126,42 +142,72 @@ class ReconEnv:
         return self.step(state, actions)
 
     # ------------------------------------------------------------------
-    def _splat_step(self, scene_id, poses, prob_grid, scanned_gt):
-        """Render + mapping for all envs: splat z-buffer and visibility,
-        hits, z-test carve, grid and coverage update.  Returns (zbuf
-        [N, H*W], prob_grid, tri, scanned_gt, ratio)."""
+    def _splat_step(self, scene_id, poses, fresh):
+        """Render + mapping products for all envs: (hit_grid [N, G, G, G],
+        traversed [N, G, G, G], gray [N, rgb_h, rgb_w]).  On the batched
+        path, fresh envs [N] bool took the forced init view: their splat is
+        masked out, and their products come from the per-scene cache."""
+        if not self._use_init_cache:
+            return self._splat_products(scene_id, poses)
+        hit, trav, gray = self._splat_products(scene_id, poses, skip_env=fresh)
+        c_hit, c_trav, c_gray = self._init_cache
+        f1 = fresh[:, None, None, None]
+        hit = torch.where(f1, c_hit[scene_id].to(hit.dtype), hit)
+        trav = torch.where(f1, c_trav[scene_id].to(trav.dtype), trav)
+        gray = torch.where(fresh[:, None, None], c_gray[scene_id], gray)
+        return hit, trav, gray
+
+    def _splat_products(self, scene_id, poses, skip_env=None):
+        """Splat, hits, carve and grayscale frame of every env, with the
+        points of the envs in skip_env [N] bool masked out."""
+        cfg = self.cfg
+        sc = self.scenes
+        h, w = cfg.camera.height, cfg.camera.width
+        r_c2w, t_c2w = camera.pose_to_c2w(poses, cfg.camera.z_offset)
+        # visibility slack: the mean render-voxel size
+        veps = fp32.mean3_of_scaled(sc.box_hi[scene_id] - sc.box_lo[scene_id],
+                                    sc.grid_res)
+        zbuf, _, visible = splat.splat_depth_batch(
+            sc.surf_pts[scene_id], sc.surf_mask[scene_id], self.intrinsics,
+            r_c2w, t_c2w, h, w, cfg.camera.depth_max, veps,
+            cfg.renderer.footprint, skip_env=skip_env)
+        hit, trav = self._hits_carve(scene_id, r_c2w, t_c2w, zbuf, visible)
+        gray = camera.depth_to_grayscale(zbuf.reshape(-1, h, w),
+                                         cfg.camera.depth_max, cfg.rgb_h,
+                                         cfg.rgb_w)
+        return hit, trav, gray
+
+    def _hits_carve(self, scene_id, r_c2w, t_c2w, zbuf, visible):
+        """Visible surface points -> hit grid; z-test carve mask.  Both
+        [N, G, G, G] float."""
         cfg = self.cfg
         sc = self.scenes
         g = sc.grid_size
         h, w = cfg.camera.height, cfg.camera.width
         range_gt = sc.range_gt[scene_id]
         vsize = sc.voxel_size[scene_id]
-        surf_pts = sc.surf_pts[scene_id]
-
-        r_c2w, t_c2w = camera.pose_to_c2w(poses, cfg.camera.z_offset)
-        zbuf, _, visible = splat.splat_depth(
-            surf_pts, sc.surf_mask[scene_id], self.intrinsics, r_c2w, t_c2w,
-            h, w, cfg.camera.depth_max,
-            # visibility slack: the mean render-voxel size
-            fp32.mean3_of_scaled(sc.box_hi[scene_id] - sc.box_lo[scene_id],
-                                 sc.grid_res),
-            cfg.renderer.footprint)
-
         # visible surface points are the mapping hits
-        idx, in_bounds = voxel.points_to_voxel_idx(surf_pts, visible,
-                                                   range_gt, vsize)
+        idx, in_bounds = voxel.points_to_voxel_idx(sc.surf_pts[scene_id],
+                                                   visible, range_gt, vsize)
         hit_grid = voxel.scatter_hits(g, idx, in_bounds)
         centers = scene_lib.voxel_centers(range_gt, vsize, g)
         traversed = carve.carve_ztest(
             centers, zbuf.reshape(-1, h, w), self.intrinsics, r_c2w, t_c2w,
             0.5 * fp32.mean3(vsize), cfg.camera.depth_max).reshape(-1, g, g, g)
+        return hit_grid, traversed
 
-        prob_grid = carve.update_prob_grid(prob_grid, hit_grid, traversed)
-        tri = voxel.tri_cls(prob_grid)
-        scanned_gt, ratio = voxel.coverage_update(
-            scanned_gt, hit_grid, sc.grid_gt[scene_id],
-            sc.num_valid_voxel[scene_id])
-        return zbuf, prob_grid, tri, scanned_gt, ratio
+    def _build_init_step_cache(self):
+        """Splat + hits/carve of the forced init view of every scene:
+        (hit_grid [S, G, G, G] bool, traversed [S, G, G, G] bool, gray
+        [S, rgb_h, rgb_w] float)."""
+        s = self.scenes.num_scenes
+        # the JAX package computes this pose outside its jitted step, as a
+        # product and a sum rounded apart
+        pose = self.init_action.float() * self.action_unit + self.pose_low
+        poses = pose.expand(s, spec.ACTION_DIM)
+        sid = torch.arange(s, device=self.device)
+        hit, trav, gray = self._splat_products(sid, poses)
+        return hit > 0.5, trav > 0.5, gray
 
     # ------------------------------------------------------------------
     def step(self, state: EnvState, actions: torch.Tensor):
@@ -178,18 +224,20 @@ class ReconEnv:
         poses = fp32.fma(actions.float(), self.action_unit, self.pose_low)
         episode_len = state.episode_len + 1
 
-        zbuf, prob_grid, tri, scanned_gt, ratio = self._splat_step(
-            state.scene_id, poses, state.prob_grid, state.scanned_gt)
+        hit_grid, traversed, gray = self._splat_step(state.scene_id, poses,
+                                                     fresh[:, 0])
+        sc = self.scenes
+        prob_grid = carve.update_prob_grid(state.prob_grid, hit_grid, traversed)
+        tri = voxel.tri_cls(prob_grid)
+        scanned_gt, ratio = voxel.coverage_update(
+            state.scanned_gt, hit_grid, sc.grid_gt[state.scene_id],
+            sc.num_valid_voxel[state.scene_id])
         collision = render.check_collision_batch(
-            self.scenes.render_occ, self.scenes.box_lo, self.scenes.box_hi,
-            state.scene_id, poses[:, :3], cfg.collision_radius,
-            self.scenes.grid_res)
+            sc.render_occ, sc.box_lo, sc.box_hi, state.scene_id, poses[:, :3],
+            cfg.collision_radius, sc.grid_res)
 
         # observation buffers
         pose_buf = torch.cat([state.pose_buf[:, 1:], poses[:, None, :]], dim=1)
-        gray = camera.depth_to_grayscale(
-            zbuf.reshape(n, cfg.camera.height, cfg.camera.width),
-            cfg.camera.depth_max, cfg.rgb_h, cfg.rgb_w)
         rgb_buf = torch.cat([state.rgb_buf[:, 1:], gray[:, None]], dim=1)
 
         # rewards (scale * dt semantics, config.RewardConfig)

@@ -389,9 +389,10 @@ def _surface_points(surface: np.ndarray, box_lo: np.ndarray, vsize: np.ndarray,
 
 def generate_procedural(cfg: SceneConfig, grid_res: int,
                         max_gt_points: int = 8192,
-                        device: torch.device | str = "cpu") -> SceneSet:
+                        device: torch.device | str = "cuda") -> SceneSet:
     """Build a SceneSet of procedural houses (host-side numpy, then one
-    copy of each array to `device`)."""
+    copy of each array to `device`, the card unless the caller asks for
+    the CPU)."""
     if cfg.difficulty not in ("standard", "hard"):
         raise ValueError(
             f"unknown scene difficulty {cfg.difficulty!r}; one of standard|hard")
@@ -463,7 +464,7 @@ def generate_procedural(cfg: SceneConfig, grid_res: int,
 
 
 def make_scenes(cfg: SceneConfig, grid_res: int,
-                device: torch.device | str = "cpu") -> SceneSet:
+                device: torch.device | str = "cuda") -> SceneSet:
     """The scene set a config names, on `device`.  Unlike the JAX package
     the port keeps no on-disk scene cache: it writes nothing outside the
     caller's control."""

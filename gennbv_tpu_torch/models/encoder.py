@@ -35,7 +35,7 @@ class HybridEncoder(nn.Module):
     """obs [N, >= 8600] -> feature [N, fused_dim].  BatchNorm momentum 0.1
     (Flax's 0.9) and eps 1e-5; the rollout runs it in eval mode."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device: torch.device | str = "cuda"):
         super().__init__()
         self.cfg = cfg
         c, hid = cfg.grid_channels, cfg.pose_mlp_hidden

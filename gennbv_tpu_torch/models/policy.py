@@ -7,7 +7,8 @@ action head and a scalar value head directly.  Head weights are orthogonal
 with SB3's gains (0.01 action, 1.0 value, policies.py:987-994) and zero
 bias; the encoder keeps PyTorch's default init, as the reference's
 features extractor does.  Every draw comes from the generator passed in,
-so a seed fixes the whole initialisation.
+so a seed fixes the whole initialisation.  The parameters live on the
+card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ class PolicyOutput(NamedTuple):
 
 class ActorCriticPolicy(nn.Module):
     def __init__(self, cfg: ModelConfig,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None,
+                 device: torch.device | str = "cuda"):
         super().__init__()
         fp32.full_fp32()
         self.encoder = HybridEncoder(cfg, device=device)

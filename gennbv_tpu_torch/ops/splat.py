@@ -15,6 +15,13 @@ Here it is one integer-key min, ``key = d1 * 10 + d2`` with
 ``scatter_reduce_("amin")``: the same lexicographic minimum, exact for any
 number of points per pixel (the radix form goes one bucket low once a
 (pixel, bucket) pair holds 2^12 points or more).
+
+The device of the tensors picks the implementation, whatever
+``renderer.zbuf_impl`` says: on CUDA tensors ``splat_depth`` runs the
+z-buffer, pool and visibility as the fused CUDA kernel of
+``ops/fused_splat.py`` (the port of the JAX package's Pallas kernel); on
+CPU tensors it runs their plain composition ``zbuf_vis_px``.  Both give
+the same bits.
 """
 from __future__ import annotations
 
@@ -105,25 +112,46 @@ def min_pool(z2d: torch.Tensor, footprint: int, depth_max: float) -> torch.Tenso
 def zbuf_vis_px(vic, uic, z, ok, height: int, width: int, depth_max: float,
                 voxel_eps: torch.Tensor, footprint: int = 1):
     """Pooled z-buffer [N, H*W] and per-point visibility [N, Q] from
-    projected pixel coordinates.  A point is visible when its depth is
+    projected pixel coordinates: the plain version of the fused kernel
+    (``fused_splat.zbuf_visible``).  A point is visible when its depth is
     within ``voxel_eps + zrange/100`` (slack widened by the quantization
-    step) of the pooled z-buffer at its pixel, read through the bf16
-    gather kernel."""
+    step) of the pooled z-buffer at its pixel, read rounded to bf16."""
     n = z.shape[0]
     zbuf0, quant = zbuf_keymin(vic, uic, z, ok, height, width, depth_max)
     zbuf2d = min_pool(zbuf0.reshape(n, height, width), footprint, depth_max)
     eps = voxel_eps + quant
-    z_at_px = gather.gather_image(zbuf2d, vic, uic)
+    z_at_px = gather.gather_image_ref(zbuf2d, vic, uic)
     visible = ok & (z <= z_at_px + eps[:, None])
     return zbuf2d.reshape(n, height * width), visible
 
 
 def splat_depth(surf_pts, surf_mask, k, r_c2w, t_c2w, height: int, width: int,
                 depth_max: float, voxel_eps: torch.Tensor, footprint: int = 1):
-    """Returns (zbuf [N, H*W], fg [N, H*W] bool, visible [N, Q] bool)."""
+    """Returns (zbuf [N, H*W], fg [N, H*W] bool, visible [N, Q] bool),
+    through the fused kernel on CUDA tensors and its plain version on CPU
+    tensors."""
+    # imported here: fused_splat's plain version is this module's zbuf_vis_px
+    from gennbv_tpu_torch.ops import fused_splat
     vic, uic, z, ok = project_px(surf_pts, surf_mask, k, r_c2w, t_c2w,
                                  height, width)
-    zbuf, visible = zbuf_vis_px(vic, uic, z, ok, height, width, depth_max,
-                                voxel_eps, footprint)
+    # z is a column of p_cam: the kernel takes it packed
+    zbuf, visible = fused_splat.zbuf_visible(
+        vic, uic, z.contiguous(), ok, voxel_eps.contiguous(), height, width,
+        depth_max, footprint)
     fg = zbuf < depth_max - 1e-6
     return zbuf, fg, visible
+
+
+def splat_depth_batch(surf_pts, surf_mask, k, r_c2w, t_c2w, height: int,
+                      width: int, depth_max: float, voxel_eps: torch.Tensor,
+                      footprint: int = 1, skip_env=None):
+    """The JAX package's batched splat on its dense branch: ``splat_depth``
+    with every point of the envs in ``skip_env`` [N] bool masked out (the
+    caller substitutes their outputs from the init-view cache).  Its
+    survivor compaction and row banding only shorten the TPU's matrix
+    products and are bit-identical to the dense branch; they are not
+    ported, and the config refuses the settings that select them."""
+    if skip_env is not None:
+        surf_mask = surf_mask & ~skip_env[:, None]
+    return splat_depth(surf_pts, surf_mask, k, r_c2w, t_c2w, height, width,
+                       depth_max, voxel_eps, footprint)

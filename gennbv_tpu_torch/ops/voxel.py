@@ -3,7 +3,7 @@
 - points -> voxel indices with the half-voxel-offset bounds mask
   (gennbv/utils.py:230-270, ``scanned_pts_to_idx_3D``)
 - tri-class grid {-1 free, 0 unknown, 1 occupied} (gennbv/utils.py:309-325)
-- hit grid: an idempotent scatter of 1.0 (no dedup needed)
+- hit grid: an idempotent scatter of 1.0 (no dedup needed; ops/scatter.py)
 - coverage of the GT surface
 """
 from __future__ import annotations
@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from gennbv_tpu_torch import spec
+from gennbv_tpu_torch.ops import scatter
 
 
 def points_to_voxel_idx(pts, valid, range_gt, voxel_size):
@@ -40,16 +41,11 @@ def tri_cls(prob_grid: torch.Tensor) -> torch.Tensor:
 def scatter_hits(grid_size: int, idx: torch.Tensor,
                  valid: torch.Tensor) -> torch.Tensor:
     """[N, G, G, G] float grid with 1.0 at the cells of valid points.
-    idx [N, P, 3] int32 (in range), valid [N, P].  Invalid points write
-    to a spare cell past the grid, which is dropped; every write stores
-    the same 1.0, so the scatter is idempotent and order-free."""
-    g = grid_size
-    n = idx.shape[0]
-    flat = (idx[..., 0].long() * g + idx[..., 1]) * g + idx[..., 2]
-    flat = torch.where(valid, flat, g ** 3)
-    grid = torch.zeros(n, g ** 3 + 1, device=idx.device)
-    grid.scatter_(1, flat, 1.0)
-    return grid[:, : g ** 3].reshape(n, g, g, g)
+    idx [N, P, 3] int32 (in range), valid [N, P] bool.  The any-hit
+    scatter of ``ops/scatter.py``: its CUDA kernel on the card, its plain
+    version on the CPU."""
+    return scatter.scatter_cells_any(idx.contiguous(), valid.contiguous(),
+                                     grid_size)
 
 
 def coverage_update(scanned_gt, hit_grid, grid_gt, num_valid):

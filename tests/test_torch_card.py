@@ -1,11 +1,14 @@
-"""Tests of the port that need a CUDA card: the gather kernel against its
-plain version, the mapping golden and a rollout with the kernel in use.
-They skip on a machine without one.  This file imports no jax, so it also
-runs where jax is missing; tests/conftest.py imports jax, so there run it
-without the conftest:
+"""Tests of the port that need a CUDA card: each kernel against its plain
+version, the mapping golden, and a rollout and an eval with the kernels in
+use.  They skip on a machine without one.  This file imports no jax, so it
+also runs where jax is missing; tests/conftest.py imports jax, so there run
+it without the conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_card.py
 """
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
@@ -16,9 +19,56 @@ def cuda():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
 
 
-def test_gather_kernel_equals_plain_at_rollout_shapes(cuda):
+@pytest.mark.parametrize("q", [11264, 8000])
+def test_gather_kernel_equals_plain_at_rollout_shapes(cuda, q):
+    """[256, 128, 128] images with planted values (bf16 ties, -0.0, a
+    negative, empty pixels), at the surface capacity and the G^3 carve."""
     import chip_smoke
-    assert chip_smoke.phase_kernel()["max_abs_err"] == 0.0
+    assert chip_smoke.planted_gather_case(q)["max_abs_err"] == 0.0
+
+
+@pytest.mark.parametrize("g,q", [(4, 40), (20, 700), (20, 5000)])
+def test_scatter_kernel_equals_plain(cuda, g, q):
+    from gennbv_tpu_torch.ops import scatter
+    gen = torch.Generator(device="cuda").manual_seed(g + q)
+    idx = torch.randint(0, g, (3, q, 3), device="cuda", dtype=torch.int32,
+                        generator=gen)
+    valid = torch.rand(3, q, device="cuda", generator=gen) < 0.5
+    valid[2] = False                              # an env with no valid point
+    before = scatter.scatter_cells_any.launches
+    got = scatter.scatter_cells_any(idx, valid, g)
+    torch.cuda.synchronize()
+    assert scatter.scatter_cells_any.launches == before + 1
+    assert torch.equal(got, scatter.scatter_cells_any_ref(idx, valid, g))
+    assert got[2].sum() == 0 and got[0].sum() > 0
+
+
+@pytest.mark.parametrize("h,w,q,footprint", [(16, 16, 40, 1), (64, 48, 700, 1),
+                                              (40, 40, 3000, 0), (37, 53, 5000, 2)])
+def test_fused_splat_kernel_equals_plain(cuda, h, w, q, footprint):
+    """Random pixels and depths; env 0 has no valid point, env 1 piles
+    thousands of points on a few pixels in a narrow depth band."""
+    from gennbv_tpu_torch.ops import fused_splat
+    gen = torch.Generator(device="cuda").manual_seed(h + q)
+    n = 4
+    vic = torch.randint(0, h, (n, q), device="cuda", dtype=torch.int32, generator=gen)
+    uic = torch.randint(0, w, (n, q), device="cuda", dtype=torch.int32, generator=gen)
+    z = torch.rand(n, q, device="cuda", generator=gen) * 28.0 + 1.0
+    ok = torch.rand(n, q, device="cuda", generator=gen) < 0.7
+    ok[0] = False
+    vic[1] %= 3
+    uic[1] %= 2
+    z[1] = 4.0 + z[1] / 140.0
+    veps = torch.tensor([0.15, 0.2, 0.1, 0.17], device="cuda")
+    before = fused_splat.zbuf_visible.launches
+    got = fused_splat.zbuf_visible(vic, uic, z, ok, veps, h, w, 50.0, footprint)
+    torch.cuda.synchronize()
+    assert fused_splat.zbuf_visible.launches == before + 1
+    want = fused_splat.zbuf_visible_ref(vic, uic, z, ok, veps, h, w, 50.0,
+                                        footprint)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[0][0] == 50.0).all() and not got[1][0].any()
+    assert got[1][2:].any()
 
 
 def test_golden_on_card(cuda):
@@ -27,22 +77,55 @@ def test_golden_on_card(cuda):
 
 
 def test_rollout_launches_the_kernel_twice_per_step(cuda):
+    """Each of the three kernels once per env step: the fused splat, the
+    hit scatter and the carve gather."""
     from gennbv_tpu_torch import config
     from gennbv_tpu_torch.algo import rollout
     from gennbv_tpu_torch.env import ReconEnv, make_scenes
     from gennbv_tpu_torch.models.policy import ActorCriticPolicy
-    from gennbv_tpu_torch.ops import gather
+    import chip_smoke
 
     cfg = config.EnvConfig(num_envs=8, camera=config.CameraConfig(height=32, width=32),
                            renderer=config.RendererConfig(resolution=16),
                            scene=config.SceneConfig(num_scenes=4, seed=1))
-    env = ReconEnv(cfg, make_scenes(cfg.scene, 16, "cuda"))
+    env = ReconEnv(cfg, make_scenes(cfg.scene, 16))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    policy = ActorCriticPolicy(config.ModelConfig(), gen, device="cuda")
-    before = gather.gather_image.launches
+    policy = ActorCriticPolicy(config.ModelConfig(), gen)
+    chip_smoke.reset_launches()
     state, out = env.reset(8)
     _, obs, batch, stats = rollout.collect(env, policy, state, out.obs, gen, 4, 0.99)
     torch.cuda.synchronize()
-    assert gather.gather_image.launches - before == 2 * (1 + 4)
+    assert chip_smoke.launches() == {name: 1 + 4 for name in chip_smoke.KERNELS}
     assert obs.is_cuda and torch.isfinite(batch.values).all()
     assert ((stats.coverage >= 0) & (stats.coverage <= 1)).all()
+
+
+def test_eval_launches_each_kernel_per_step(cuda):
+    """A small held-out eval on the batched splat path: each kernel runs
+    once for the init-view cache, once for the reset and once per step;
+    without the cache (zbuf_impl=mxu) the same kernels run once per step
+    and give the same results."""
+    import chip_smoke
+    from gennbv_tpu_torch import config
+    from gennbv_tpu_torch.env import make_scenes
+    from gennbv_tpu_torch.models.policy import ActorCriticPolicy
+
+    def small(zbuf_impl):
+        cfg = chip_smoke.eval_config(zbuf_impl)
+        return dataclasses.replace(
+            cfg, num_envs=4, max_episode_length=6,
+            camera=config.CameraConfig(height=48, width=48),
+            renderer=dataclasses.replace(cfg.renderer, resolution=24),
+            scene=config.SceneConfig(num_scenes=4, seed=100))
+
+    cfg = small("pallas")
+    scenes = make_scenes(cfg.scene, 24)
+    policy = ActorCriticPolicy(config.ModelConfig(),
+                               torch.Generator(device="cuda").manual_seed(1))
+    res, counts, _ = chip_smoke.run_eval(cfg, scenes, policy)
+    assert counts == {name: 2 + 6 for name in chip_smoke.KERNELS}
+    chip_smoke.check_eval(res, 6)
+    mxu, counts, _ = chip_smoke.run_eval(small("mxu"), scenes, policy)
+    assert counts == {name: 1 + 6 for name in chip_smoke.KERNELS}
+    np.testing.assert_array_equal(res.per_env_coverage, mxu.per_env_coverage)
+    np.testing.assert_array_equal(res.per_env_auc, mxu.per_env_auc)

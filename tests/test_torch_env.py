@@ -30,7 +30,7 @@ def _golden_run():
         scene=pt_config.SceneConfig(num_scenes=2, seed=7),
         max_episode_length=6,
     )
-    env = ReconEnv(cfg, make_scenes(cfg.scene, cfg.renderer.resolution))
+    env = ReconEnv(cfg, make_scenes(cfg.scene, cfg.renderer.resolution, "cpu"))
     state, out = env.reset(4)
     obs, rew, cov = [out.obs], [], []
     for a in GOLDEN_ACTIONS:
@@ -97,7 +97,7 @@ def test_port_env_matches_jax_env():
     resize, as in the golden)."""
     jcfg, pcfg = _direct_cfgs()
     jenv = JaxReconEnv(jcfg, jax_scene.generate_procedural(jcfg.scene, 16))
-    penv = ReconEnv(pcfg, make_scenes(pcfg.scene, 16))
+    penv = ReconEnv(pcfg, make_scenes(pcfg.scene, 16, "cpu"))
     jstate, jout = jenv.reset(8)
     pstate, pout = penv.reset(8)
     acts = _scripted_actions(6, 8)
@@ -127,7 +127,7 @@ def test_long_episodes_match_jax_env():
     jcfg = dataclasses.replace(jcfg, max_episode_length=36)
     pcfg = dataclasses.replace(pcfg, max_episode_length=36)
     jenv = JaxReconEnv(jcfg, jax_scene.generate_procedural(jcfg.scene, 16))
-    penv = ReconEnv(pcfg, make_scenes(pcfg.scene, 16))
+    penv = ReconEnv(pcfg, make_scenes(pcfg.scene, 16, "cpu"))
     jstate, jout = jenv.reset(8)
     pstate, pout = penv.reset(8)
     acts = _scripted_actions(34, 8)

@@ -37,7 +37,7 @@ def converted():
         bn["mean"] = rng.normal(0, 0.3, bn["mean"].shape).astype(np.float32)
         bn["var"] = rng.uniform(0.5, 2.0, bn["var"].shape).astype(np.float32)
     variables = {"params": variables["params"], "batch_stats": stats}
-    policy = ActorCriticPolicy(ModelConfig())
+    policy = ActorCriticPolicy(ModelConfig(), device="cpu")
     policy.load_state_dict(convert.jax_to_state_dict(variables))
     return model, variables, policy.eval()
 
@@ -91,8 +91,10 @@ def test_sample_frequencies_follow_softmax():
 
 
 def test_init_is_seeded_and_heads_orthogonal():
-    a = ActorCriticPolicy(ModelConfig(), torch.Generator().manual_seed(1))
-    b = ActorCriticPolicy(ModelConfig(), torch.Generator().manual_seed(1))
+    a = ActorCriticPolicy(ModelConfig(), torch.Generator().manual_seed(1),
+                          device="cpu")
+    b = ActorCriticPolicy(ModelConfig(), torch.Generator().manual_seed(1),
+                          device="cpu")
     for (name, pa), pb in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(pa, pb), name
     w = a.action_net.weight                       # [240, 256], gain 0.01

@@ -60,8 +60,8 @@ def test_rollout_replay_matches_jax_collect():
     jb, js = jax.device_get((jb, js))
 
     pcfg = _cfg(pt_config)
-    penv = ReconEnv(pcfg, make_scenes(pcfg.scene, 16))
-    policy = ActorCriticPolicy(pt_config.ModelConfig())
+    penv = ReconEnv(pcfg, make_scenes(pcfg.scene, 16, "cpu"))
+    policy = ActorCriticPolicy(pt_config.ModelConfig(), device="cpu")
     policy.load_state_dict(convert.jax_to_state_dict(jax.device_get(variables)))
     replay = _Replay(policy, [torch.from_numpy(np.array(a)) for a in jb.actions])
     pstate, pout = penv.reset(N_ENVS)
@@ -92,11 +92,12 @@ def test_collect_samples_with_generator():
     """Without replay: a seeded generator fixes the rollout, and the
     outputs are finite and well-formed."""
     pcfg = _cfg(pt_config)
-    penv = ReconEnv(pcfg, make_scenes(pcfg.scene, 16))
+    penv = ReconEnv(pcfg, make_scenes(pcfg.scene, 16, "cpu"))
     runs = []
     for _ in range(2):
         policy = ActorCriticPolicy(pt_config.ModelConfig(),
-                                   torch.Generator().manual_seed(1))
+                                   torch.Generator().manual_seed(1),
+                                   device="cpu")
         state, out = penv.reset(N_ENVS)
         runs.append(pt_rollout.collect(penv, policy, state, out.obs,
                                        torch.Generator().manual_seed(2), 3, GAMMA))

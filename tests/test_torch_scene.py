@@ -16,7 +16,7 @@ def test_generate_procedural_bit_equal(num_scenes, grid_res):
     want = jax_scene.generate_procedural(
         JaxSceneConfig(num_scenes=num_scenes, seed=5), grid_res)
     got = pt_scene.make_scenes(SceneConfig(num_scenes=num_scenes, seed=5),
-                               grid_res)
+                               grid_res, "cpu")
     assert got.grid_res == want.grid_res and got.grid_size == want.grid_size
     for name in pt_scene.SceneSet._fields[:-2]:
         a, b = getattr(got, name), np.asarray(getattr(want, name))
@@ -29,7 +29,8 @@ def test_generate_procedural_bit_equal(num_scenes, grid_res):
 def test_unported_datasets_raise():
     for dataset in ("objects", "terrain", "/some/dir"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            pt_scene.make_scenes(SceneConfig(num_scenes=1, dataset=dataset), 16)
+            pt_scene.make_scenes(SceneConfig(num_scenes=1, dataset=dataset), 16,
+                                "cpu")
 
 
 def test_voxel_centers_bit_equal():

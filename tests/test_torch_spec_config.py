@@ -58,7 +58,7 @@ def test_apply_overrides_same_tree():
 
 
 @pytest.mark.parametrize("override", [
-    "env.renderer.zbuf_impl=pallas", "env.renderer.zbuf_impl=scatter",
+    "env.renderer.zbuf_impl=scatter",
     "env.renderer.merge_vis_carve=true", "env.renderer.compact_cap_frac=0.5",
     "env.renderer.band_split=8", "env.renderer.mode=dda",
     "env.carve_mode=bresenham",
@@ -66,6 +66,15 @@ def test_apply_overrides_same_tree():
 def test_unsupported_renderer_settings_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue"):
         pt_config.apply_overrides(pt_config.Config(), (override,))
+
+
+@pytest.mark.parametrize("override", [
+    "env.renderer.zbuf_impl=pallas", "env.renderer.scatter_impl=pallas",
+])
+def test_pallas_renderer_settings_accepted(override):
+    got = pt_config.apply_overrides(pt_config.Config(), (override,))
+    want = jax_config.apply_overrides(jax_config.Config(), (override,))
+    assert pt_config.config_to_dict(got) == jax_config.config_to_dict(want)
 
 
 def test_bad_impl_name_rejected():
@@ -93,3 +102,17 @@ def test_package_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) >= 15
+
+
+@pytest.mark.parametrize("entry", ["env.scene.make_scenes",
+                                   "env.scene.generate_procedural",
+                                   "models.policy.ActorCriticPolicy",
+                                   "models.encoder.HybridEncoder"])
+def test_entry_points_build_on_the_card_by_default(entry):
+    """The port's entry points run on the card unless the caller asks for
+    the CPU (the CPU tests pass device="cpu")."""
+    import importlib
+    import inspect
+    module, name = entry.rsplit(".", 1)
+    fn = getattr(importlib.import_module(f"gennbv_tpu_torch.{module}"), name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"

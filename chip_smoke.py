@@ -10,7 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    source, all started together (each timed);
 3. hold each kernel bit-equal to its plain PyTorch version at the shapes of
    the paths below and time both, with the bound of the card and one
-   PyTorch library call where one computes the same function:
+   PyTorch library call where one computes the same function; check under
+   torch.profiler that each wrapper call is one device launch of its
+   kernel:
    - the 400x400 held-out eval (50 envs, the 50 eval scenes' surface
      capacity Q, 20^3 grid): the fused splat z-buffer + visibility, the hit
      scatter and the carve gather;
@@ -86,12 +88,11 @@ KERNELS = {
 }
 
 
-# the __global__ functions each wrapper launches (csrc/*.cu)
+# the __global__ function each wrapper launches, once a call (csrc/*.cu)
 PORT_KERNEL_FUNCTIONS = {
-    "gather_image": ("gather_image_kernel",),
-    "scatter_cells_any": ("scatter_cells_any_kernel",),
-    "zbuf_visible": ("zrange_kernel", "key_kernel", "pool_kernel",
-                     "visible_kernel"),
+    "gather_image": "gather_image_kernel",
+    "scatter_cells_any": "scatter_cells_any_kernel",
+    "zbuf_visible": "zbuf_visible_cluster_kernel",
 }
 
 
@@ -169,10 +170,9 @@ def _bound(nbytes: float, ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _case(label, kernel, plain, library, nbytes, ops) -> dict:
-    """Kernel vs plain version, bit for bit, then timed beside the library
-    call and the bound."""
-    got, want = kernel(), plain()
+def _equal(label, got, want) -> float:
+    """Raises unless the kernel's outputs equal the plain version's bit
+    for bit; returns the largest difference (0.0)."""
     torch.cuda.synchronize()
     err = 0.0
     for g, w in zip(got, want):
@@ -181,14 +181,57 @@ def _case(label, kernel, plain, library, nbytes, ops) -> dict:
                 f"{label}: kernel differs from plain: max "
                 f"{float((g.float() - w.float()).abs().max())}")
         err = max(err, float((g.float() - w.float()).abs().max()))
+    return err
+
+
+def profile_calls(fn, calls: int = 20) -> tuple[float, float, set]:
+    """Runs fn `calls` times back to back under torch.profiler, after one
+    call outside it; returns the device activities per call, their device
+    time per call in ms, and their names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        # a device activity of its own opens the profiled window: the
+        # calls' activities are those that start inside the "calls" range
+        torch.ones(1, device="cuda")
+        torch.cuda.synchronize()
+        with torch.profiler.record_function("calls"):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    window = next(e.time_range for e in events if e.name == "calls")
+    # device activities inside the range, less the range's own device mark
+    spans = [e for e in events if e.device_type == DeviceType.CUDA
+             and e.time_range.start >= window.start and e.name != "calls"]
+    return (len(spans) / calls,
+            sum(e.time_range.end - e.time_range.start for e in spans) / calls / 1e3,
+            {e.name for e in spans})
+
+
+def _case(label, name, kernel, plain, library, nbytes, ops) -> dict:
+    """Kernel vs plain version, bit for bit; one device launch of the
+    kernel per wrapper call; then timed beside the library call and the
+    bound."""
+    err = _equal(label, kernel(), plain())
+    per_call, device_ms, names = profile_calls(kernel)
+    if per_call != 1 or not all(PORT_KERNEL_FUNCTIONS[name] in n for n in names):
+        raise AssertionError(
+            f"{label}: {per_call} device launches a call ({sorted(names)}), "
+            f"expected one launch of {PORT_KERNEL_FUNCTIONS[name]}")
     bound_ms, bound_by = _bound(nbytes, ops)
     res = {"max_abs_err": err, "ms": _time_ms(kernel), "plain_ms": _time_ms(plain),
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": None if library is None else _time_ms(library)}
+           "library_ms": None if library is None else _time_ms(library),
+           "device_launches_per_call": per_call, "kernel_device_ms": device_ms}
     lib = "none" if library is None else f"{res['library_ms']:.4f} ms"
     print(f"{label}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
           f"library {lib}, bound {bound_ms:.4f} ms ({bound_by}) "
-          "(median, CUDA events)")
+          f"(median, CUDA events); {per_call:g} device launch a call, "
+          f"{device_ms:.4f} ms of device time (profiler)")
     return res
 
 
@@ -202,7 +245,7 @@ def gather_case(label, img, vi, ui) -> dict:
     env = torch.arange(n, device=img.device)[:, None] * (h * w)
     distinct = torch.unique(flat + env).numel()
     return _case(
-        label,
+        label, "gather_image",
         lambda: (gather.gather_image(img, vi, ui),),
         lambda: (gather.gather_image_ref(img, vi, ui),),
         # library: one torch.gather on the image already rounded to bf16,
@@ -221,7 +264,7 @@ def scatter_case(label, idx, valid) -> dict:
     # (12 B), the grid written once (4 B a cell); a flat index and a
     # store per valid point
     return _case(
-        label,
+        label, "scatter_cells_any",
         lambda: (scatter.scatter_cells_any(idx, valid, G),),
         lambda: (scatter.scatter_cells_any_ref(idx, valid, G),),
         # library: one scatter_ of 1.0 into a zeroed grid with a spare
@@ -238,7 +281,7 @@ def splat_case(label, vic, uic, z, ok, veps, h, w, depth_max) -> dict:
     # 19 per valid point (z range, digits, key, visibility compare) and 16
     # per pixel (9-key min, decode)
     return _case(
-        label,
+        label, "zbuf_visible",
         lambda: fused_splat.zbuf_visible(vic, uic, z, ok, veps, h, w, depth_max),
         lambda: fused_splat.zbuf_visible_ref(vic, uic, z, ok, veps, h, w,
                                              depth_max),
@@ -393,9 +436,9 @@ def profile(label: str, fn, unprofiled_s: float | None = None) -> dict:
 
 def _device_ms_per_call(device_us: dict, calls: int) -> dict:
     """The profiled device time of each wrapper over `calls` calls, per
-    call (the fused splat's call is its four launches)."""
-    return {name: sum(device_us.get(k, 0.0) for k in fns) / calls / 1e3
-            for name, fns in PORT_KERNEL_FUNCTIONS.items()}
+    call."""
+    return {name: device_us.get(fn, 0.0) / calls / 1e3
+            for name, fn in PORT_KERNEL_FUNCTIONS.items()}
 
 
 def flagship_config() -> config.EnvConfig:

@@ -24,6 +24,17 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+# H100 shared memory (CUDA's limits for compute capability 9.0): an SM has
+# 228 KB, a CTA may take up to 227 KB of it, and each resident CTA costs
+# 1 KB more
+SHARED_PER_SM = 233_472
+SHARED_PER_CTA = 232_448
+SHARED_RESERVED_PER_CTA = 1_024
+# the shared memory a CTA may take so that two of them share an SM
+SHARED_TWO_PER_SM = SHARED_PER_SM // 2 - SHARED_RESERVED_PER_CTA
+# the largest portable thread-block cluster
+MAX_CLUSTER = 8
+
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")

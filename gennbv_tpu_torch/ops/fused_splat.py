@@ -20,9 +20,13 @@ empty 512-point chunks.  The CUDA kernel needs neither: a thread whose
 point is not valid returns at once, and outputs stay in point order.
 
 The device of the tensors picks the implementation.  CUDA tensors launch
-the hand-written kernels of ``csrc/zbuf_visible.cu`` (and raise if they
+the hand-written kernel of ``csrc/zbuf_visible.cu`` once (and raise if it
 cannot run); CPU tensors run the plain PyTorch version
 ``zbuf_visible_ref``.  There is no fallback from one to the other.
+
+The kernel runs one thread-block cluster per env, whose CTAs each hold a
+band of the env's image rows in shared memory; ``cluster_ctas`` picks their
+number from the image's shape and the footprint.
 """
 from __future__ import annotations
 
@@ -63,43 +67,94 @@ def _check(vic, uic, z, ok, voxel_eps) -> None:
         raise ValueError("zbuf_visible: tensors must be contiguous")
 
 
+# shared memory of one CTA of the kernel: an int32 key and a uint8 row min
+# for each pixel of its band, rows padded to a multiple of 4 pixels
+# (dynamic), and its reduction scratch and decode tables (static)
+_BYTES_PER_PIXEL = 5
+_STATIC_SMEM = 952
+
+
+def band_rows(height: int, ctas: int) -> int:
+    """Rows of each CTA's band when `ctas` CTAs share an image of `height`
+    rows; the last band holds what is left."""
+    return -(-height // ctas)
+
+
+def cta_smem_bytes(height: int, width: int, ctas: int) -> int:
+    """Shared memory one CTA takes when `ctas` CTAs share the image."""
+    stride = -(-width // 4) * 4
+    return _BYTES_PER_PIXEL * band_rows(height, ctas) * stride + _STATIC_SMEM
+
+
+@functools.cache
+def cluster_ctas(height: int, width: int, footprint: int) -> int:
+    """CTAs per env: the fewest (at most 8) whose bands fit in the shared
+    memory that lets two CTAs share an SM, failing that in one CTA's limit.
+    With more than one CTA each band holds at least `footprint` rows, so
+    that a pixel's pool window reaches no further than the neighbouring
+    bands.  Raises where no cluster holds the image."""
+    for budget in (_cuda.SHARED_TWO_PER_SM, _cuda.SHARED_PER_CTA):
+        for ctas in range(1, _cuda.MAX_CLUSTER + 1):
+            if ctas > 1 and band_rows(height, ctas) < footprint:
+                break
+            if cta_smem_bytes(height, width, ctas) <= budget:
+                return ctas
+    raise ValueError(
+        f"zbuf_visible: no cluster of at most {_cuda.MAX_CLUSTER} CTAs holds "
+        f"a {height}x{width} image with footprint {footprint} in shared memory")
+
+
 def zbuf_visible(vic, uic, z, ok, voxel_eps, height: int, width: int,
                  depth_max: float, footprint: int = 1):
     """vic/uic [N, Q] int32 in-range pixel coordinates, z [N, Q] float32,
     ok [N, Q] bool, voxel_eps [N] float32 -> (zbuf [N, H*W] float32,
-    visible [N, Q] bool).  Counts its calls that launch the kernels in
-    ``zbuf_visible.launches`` (one per call, for its four launches)."""
+    visible [N, Q] bool).  Counts its kernel launches in
+    ``zbuf_visible.launches``."""
     _check(vic, uic, z, ok, voxel_eps)
     if z.device.type == "cpu":
         return zbuf_visible_ref(vic, uic, z, ok, voxel_eps, height, width,
                                 depth_max, footprint)
     if z.device.type != "cuda":
         raise ValueError(f"zbuf_visible: no kernel for device {z.device}")
+    return launch(vic, uic, z, ok, voxel_eps, height, width, depth_max,
+                  footprint, cluster_ctas(height, width, footprint))
+
+
+zbuf_visible.launches = 0
+
+
+def launch(vic, uic, z, ok, voxel_eps, height: int, width: int,
+           depth_max: float, footprint: int, ctas: int):
+    """The kernel on checked CUDA tensors with `ctas` CTAs per env, which
+    ``zbuf_visible`` takes from ``cluster_ctas``; the card's tests also
+    give it other cluster sizes."""
+    if not 1 <= ctas <= _cuda.MAX_CLUSTER \
+            or (ctas > 1 and band_rows(height, ctas) < footprint) \
+            or cta_smem_bytes(height, width, ctas) > _cuda.SHARED_PER_CTA:
+        raise ValueError(f"zbuf_visible: {ctas} CTAs cannot hold a "
+                         f"{height}x{width} image with footprint {footprint}")
     n, q = z.shape
     dev = z.device
     zbuf = torch.empty(n, height * width, dtype=torch.float32, device=dev)
     visible = torch.empty(n, q, dtype=torch.bool, device=dev)
-    zstat = torch.empty(n, 2, dtype=torch.float32, device=dev)
-    keys = torch.empty(n, height * width, dtype=torch.int32, device=dev)
+    if n == 0:
+        return zbuf, visible
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _launcher()(vic.data_ptr(), uic.data_ptr(), z.data_ptr(),
                           ok.data_ptr(), voxel_eps.data_ptr(), zbuf.data_ptr(),
-                          visible.data_ptr(), zstat.data_ptr(), keys.data_ptr(),
-                          n, q, height, width, footprint, depth_max, stream)
+                          visible.data_ptr(), n, q, height, width, footprint,
+                          depth_max, ctas, stream)
     if err != 0:
         raise RuntimeError(f"zbuf_visible kernel launch failed: CUDA error {err}")
     zbuf_visible.launches += 1
     return zbuf, visible
 
 
-zbuf_visible.launches = 0
-
-
 @functools.cache
 def _launcher():
     fn = _cuda.load_library("zbuf_visible").zbuf_visible
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

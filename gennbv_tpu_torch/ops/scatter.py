@@ -7,9 +7,12 @@ package's Pallas kernel ``pallas_scatter.scatter_cells_any`` and
 scatter (``voxel.scatter_hits``).
 
 The device of the tensors picks the implementation.  CUDA tensors launch
-the hand-written kernel ``csrc/scatter_cells_any.cu`` (and raise if it
-cannot run); CPU tensors run the plain PyTorch version
+the hand-written kernel ``csrc/scatter_cells_any.cu`` once (and raise if
+it cannot run); CPU tensors run the plain PyTorch version
 ``scatter_cells_any_ref``.  There is no fallback from one to the other.
+
+The kernel runs one CTA per env, which holds the env's grid as byte flags
+in shared memory; ``flag_bytes`` says how many.
 """
 from __future__ import annotations
 
@@ -49,22 +52,38 @@ def _check(idx: torch.Tensor, valid: torch.Tensor) -> None:
         raise ValueError("scatter_cells_any: tensors must be contiguous")
 
 
+def flag_bytes(g: int) -> int:
+    """Shared memory the kernel's CTA takes for a G^3 grid: one byte a
+    cell, rounded up to a multiple of 16 for 16-byte stores.  Raises where
+    the grid does not fit in one CTA's shared memory."""
+    nbytes = -(-(g ** 3) // 16) * 16
+    if nbytes > _cuda.SHARED_PER_CTA:
+        raise ValueError(f"scatter_cells_any: G^3 = {g ** 3} flags exceed "
+                         f"the {_cuda.SHARED_PER_CTA} B of shared memory of "
+                         "one CTA")
+    return nbytes
+
+
 def scatter_cells_any(idx: torch.Tensor, valid: torch.Tensor,
                       g: int) -> torch.Tensor:
     """idx [N, P, 3] int32 in [0, G), valid [N, P] bool -> [N, G, G, G]
     float32 any-hit grid.  Counts its kernel launches in
-    ``scatter_cells_any.launches``."""
+    ``scatter_cells_any.launches``.  The kernel writes every cell, so the
+    grid is not zeroed first."""
     _check(idx, valid)
     if idx.device.type == "cpu":
         return scatter_cells_any_ref(idx, valid, g)
     if idx.device.type != "cuda":
         raise ValueError(f"scatter_cells_any: no kernel for device {idx.device}")
+    smem = flag_bytes(g)
     n, p, _ = idx.shape
-    grid = torch.zeros(n, g, g, g, dtype=torch.float32, device=idx.device)
+    grid = torch.empty(n, g, g, g, dtype=torch.float32, device=idx.device)
+    if n == 0:
+        return grid
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream(idx.device).cuda_stream
         err = _launcher()(idx.data_ptr(), valid.data_ptr(), grid.data_ptr(),
-                          n, p, g, stream)
+                          n, p, g, smem, stream)
     if err != 0:
         raise RuntimeError(f"scatter_cells_any kernel launch failed: CUDA "
                            f"error {err}")
@@ -79,6 +98,7 @@ scatter_cells_any.launches = 0
 def _launcher():
     fn = _cuda.load_library("scatter_cells_any").scatter_cells_any
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

@@ -43,6 +43,44 @@ def test_scatter_kernel_equals_plain(cuda, g, q):
     assert got[2].sum() == 0 and got[0].sum() > 0
 
 
+@pytest.mark.parametrize("g,q", [(20, 11264), (20, 9216), (4, 5000), (5, 700),
+                                 (20, 0), (40, 20000), (61, 5000)])
+def test_scatter_kernel_all_valid_and_one_cell(cuda, g, q):
+    """Every point valid (env 0), every point in one cell (env 1), a cell
+    per point cycling through the whole grid (env 2), no point at all
+    (q = 0); the grid is not zeroed before the kernel, so every cell it
+    leaves empty must be written as 0.  G = 5 has a grid whose env rows are
+    not 16-byte aligned; G = 40 and 61 take more than 48 KB of shared
+    memory, G = 61 nearly all a CTA may have."""
+    from gennbv_tpu_torch.ops import scatter
+    gen = torch.Generator(device="cuda").manual_seed(g + q)
+    idx = torch.randint(0, g, (3, q, 3), device="cuda", dtype=torch.int32,
+                        generator=gen)
+    valid = torch.ones(3, q, dtype=torch.bool, device="cuda")
+    idx[1] = torch.tensor([g - 1, 0, g // 2], dtype=torch.int32)
+    cell = torch.arange(q, device="cuda") % g ** 3
+    idx[2] = torch.stack([cell // g ** 2, cell // g % g, cell % g], -1).int()
+    # garbage where the grid will be allocated, so an unwritten cell shows
+    torch.full((3, g, g, g), 7.0, device="cuda")
+    before = scatter.scatter_cells_any.launches
+    got = scatter.scatter_cells_any(idx, valid, g)
+    torch.cuda.synchronize()
+    assert scatter.scatter_cells_any.launches == before + 1
+    assert torch.equal(got, scatter.scatter_cells_any_ref(idx, valid, g))
+    assert got[1].sum() == (q > 0)
+    assert got[2].sum() == min(q, g ** 3)
+
+
+def test_scatter_kernel_refuses_a_grid_no_cta_holds(cuda):
+    from gennbv_tpu_torch.ops import scatter
+    idx = torch.zeros(2, 10, 3, dtype=torch.int32, device="cuda")
+    valid = torch.ones(2, 10, dtype=torch.bool, device="cuda")
+    before = scatter.scatter_cells_any.launches
+    with pytest.raises(ValueError):
+        scatter.scatter_cells_any(idx, valid, 62)
+    assert scatter.scatter_cells_any.launches == before
+
+
 @pytest.mark.parametrize("h,w,q,footprint", [(16, 16, 40, 1), (64, 48, 700, 1),
                                               (40, 40, 3000, 0), (37, 53, 5000, 2)])
 def test_fused_splat_kernel_equals_plain(cuda, h, w, q, footprint):
@@ -69,6 +107,73 @@ def test_fused_splat_kernel_equals_plain(cuda, h, w, q, footprint):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert (got[0][0] == 50.0).all() and not got[1][0].any()
     assert got[1][2:].any()
+
+
+def _band_edge_inputs(n, q, h, w, ctas, seed):
+    """Random points; env 0's rows are the first and last row of every band
+    of `ctas` CTAs, env 1 piles 4096 points on one pixel of a band edge (at
+    many depths) beside random ones, env 2 has no valid point."""
+    from gennbv_tpu_torch.ops import fused_splat
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    vic = torch.randint(0, h, (n, q), device="cuda", dtype=torch.int32, generator=gen)
+    uic = torch.randint(0, w, (n, q), device="cuda", dtype=torch.int32, generator=gen)
+    z = torch.rand(n, q, device="cuda", generator=gen) * 28.0 + 1.0
+    ok = torch.rand(n, q, device="cuda", generator=gen) < 0.7
+    band = fused_splat.band_rows(h, ctas)
+    edges = sorted({r for b in range(ctas) for r in (b * band, (b + 1) * band - 1)
+                    if r < h} | {h - 1})
+    rows = torch.tensor(edges, dtype=torch.int32, device="cuda")
+    vic[0] = rows[torch.arange(q, device="cuda") % len(edges)]
+    pile = min(4096, q)
+    vic[1, :pile] = edges[len(edges) // 2]
+    uic[1, :pile] = w // 2
+    ok[1, :pile] = True
+    ok[2] = False
+    veps = torch.full((n,), 0.15, device="cuda")
+    return vic, uic, z, ok, veps
+
+
+@pytest.mark.parametrize("h,w,footprint,ctas", [
+    (401, 300, 1, None), (401, 300, 2, None), (400, 400, 1, None),
+    (128, 128, 1, 2), (37, 53, 2, 3), (37, 53, 2, 8), (16, 16, 1, 8),
+    (33, 40, 1, 8), (40, 40, 0, 5), (64, 48, 1, 1)])
+def test_fused_splat_kernel_band_edges(cuda, h, w, footprint, ctas):
+    """Points on the first and last row of every CTA's band, a pile-up of
+    4096 points on one pixel, an env with no valid point; enough points
+    that a CTA also reads points it does not keep in registers.  `ctas`
+    forces the cluster size (None: the wrapper's choice; 401 rows are not
+    a multiple of it, and 33 rows over 8 CTAs leave the last band empty)."""
+    from gennbv_tpu_torch.ops import fused_splat
+    n, q = 3, 40000
+    c = fused_splat.cluster_ctas(h, w, footprint) if ctas is None else ctas
+    inputs = _band_edge_inputs(n, q, h, w, c, h + w + footprint)
+    before = fused_splat.zbuf_visible.launches
+    got = (fused_splat.zbuf_visible(*inputs, h, w, 50.0, footprint)
+           if ctas is None else
+           fused_splat.launch(*inputs, h, w, 50.0, footprint, ctas))
+    torch.cuda.synchronize()
+    assert fused_splat.zbuf_visible.launches == before + 1
+    want = fused_splat.zbuf_visible_ref(*inputs, h, w, 50.0, footprint)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[0][2] == 50.0).all() and not got[1][2].any()
+    assert got[1][0].any() and got[1][1].any()
+
+
+@pytest.mark.parametrize("n,q", [(2, 0), (0, 700)])
+def test_fused_splat_kernel_without_points_or_envs(cuda, n, q):
+    """q = 0: a z-buffer of depth_max everywhere; n = 0: empty outputs and
+    no launch."""
+    from gennbv_tpu_torch.ops import fused_splat
+    vic = torch.zeros(n, q, dtype=torch.int32, device="cuda")
+    z = torch.ones(n, q, device="cuda")
+    ok = torch.ones(n, q, dtype=torch.bool, device="cuda")
+    veps = torch.full((n,), 0.1, device="cuda")
+    before = fused_splat.zbuf_visible.launches
+    zbuf, vis = fused_splat.zbuf_visible(vic, vic, z, ok, veps, 400, 400, 50.0)
+    torch.cuda.synchronize()
+    assert fused_splat.zbuf_visible.launches == before + (n > 0)
+    assert zbuf.shape == (n, 400 * 400) and vis.shape == (n, q)
+    assert (zbuf == 50.0).all()
 
 
 def test_golden_on_card(cuda):

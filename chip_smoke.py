@@ -33,7 +33,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    (init-view cache, reset, 30 steps), the results, and that the same eval
    with zbuf_impl=mxu (no init-view cache; the same kernels) gives
    identical per-env coverage, AUC and rewards; prints eval env-steps/s and
-   the device-time breakdown of one eval.
+   the device-time breakdown of one eval;
+7. training at the flagship recipe's full size
+   (reports/r5_refbudget128/config.json: 256 envs, 128x128 camera, R=64,
+   PPO n_steps 128, batch 128, 5 epochs, target_kl 0.05, the linear
+   schedule over 1000 iterations, 8 minibatch shards, seed 1), on phase
+   5's scenes, with the 50 eval scenes of phase 6 under
+   runner.eval_camera=400: Runner.train for 3 iterations (the first is
+   the warm-up) with an eval and a checkpoint at the third.  Checks that
+   the metrics are finite, the minibatch count and learning rate, that the
+   parameters and both BatchNorms' running stats moved, each kernel's
+   exact launch count, and that a fresh Runner restored from the
+   checkpoint holds the same parameters, optimizer state and step bit for
+   bit; prints each timed iteration's seconds by phase, env-steps/s,
+   update minibatches/s, peak memory, and the update's device-busy share,
+   top device ops and device activities per minibatch over 32 minibatches.
 The last two lines of stdout are the kernel summary with the card's name
 and power limit before them, then the result line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -46,17 +60,22 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import dataclasses
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from gennbv_tpu_torch import config, spec
-from gennbv_tpu_torch.algo import evaluation, rollout
+from gennbv_tpu_torch.algo import evaluation, gae, ppo, rollout
+from gennbv_tpu_torch.algo.runner import _METRIC_KEYS, Runner
 from gennbv_tpu_torch.env import ReconEnv, make_scenes
 from gennbv_tpu_torch.env import scene as scene_lib
 from gennbv_tpu_torch.models.policy import ActorCriticPolicy
@@ -65,6 +84,8 @@ from gennbv_tpu_torch.ops import (_cuda, camera, carve, fp32, fused_splat,
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "mapping_golden.npz")
+FLAGSHIP = os.path.join(ROOT, "reports", "r5_refbudget128", "config.json")
+TRAIN_ITERS = 3
 N_ENVS, HW, RES, N_STEPS, GAMMA = 256, 128, 64, 128, 0.99
 # surface capacity Q of the 256 seed-0 scenes at R=64 (the fused splat's points)
 ROLLOUT_Q = 11264
@@ -394,7 +415,9 @@ def profile(label: str, fn, unprofiled_s: float | None = None) -> dict:
     share of the wall time and the kernels that took the most of it.  The
     profiler slows the host; given the wall time of fn without it, the
     busy share is also printed against that.  Returns the device time in
-    microseconds of each of the port's kernels, by kernel function."""
+    microseconds of each of the port's kernels, by kernel function
+    ("kernels"), the number of device activities ("activities") and the
+    busy and wall milliseconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     torch.cuda.synchronize()
@@ -431,7 +454,9 @@ def profile(label: str, fn, unprofiled_s: float | None = None) -> dict:
         print(f"  port kernel {name}: {len(times)} launches, "
               f"{sum(times) / 1e3:.3f} ms device time, "
               f"{sum(times) / len(times) / 1e3:.4f} ms each")
-    return {name: sum(times) for name, times in ours.items()}
+    return {"kernels": {name: sum(times) for name, times in ours.items()},
+            "activities": len(spans), "busy_ms": busy / 1e3,
+            "wall_ms": wall_us / 1e3}
 
 
 def _device_ms_per_call(device_us: dict, calls: int) -> dict:
@@ -510,7 +535,7 @@ def phase_rollout(card: str, scenes) -> tuple[dict, dict]:
     device_us = profile("rollout, 8 collect steps", lambda: rollout.collect(
         env, policy, state, obs, torch.Generator(device="cuda").manual_seed(4),
         8, GAMMA), (t2 - t1) * 8 / N_STEPS)
-    return counts, _device_ms_per_call(device_us, 8)
+    return counts, _device_ms_per_call(device_us["kernels"], 8)
 
 
 def eval_config(zbuf_impl: str) -> config.EnvConfig:
@@ -591,7 +616,160 @@ def phase_eval(card: str, scenes) -> tuple[dict, dict]:
     device_us = profile(
         "eval, one evaluate call (pallas)",
         lambda: evaluation.evaluate(env, policy, compute_accuracy=False), secs)
-    return counts, _device_ms_per_call(device_us, steps)
+    return counts, _device_ms_per_call(device_us["kernels"], steps)
+
+
+def train_config() -> config.Config:
+    """The flagship recipe, reports/r5_refbudget128/config.json, with an
+    eval and a checkpoint every TRAIN_ITERS iterations."""
+    with open(FLAGSHIP) as f:
+        raw = json.load(f)
+
+    def leaves(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}.")
+            else:
+                yield f"{prefix}{k}={v}"
+
+    return config.apply_overrides(config.Config(), (
+        *leaves(raw, ""), f"runner.eval_freq={TRAIN_ITERS}",
+        f"runner.save_freq={TRAIN_ITERS}"))
+
+
+def _profile_update(card: str, runner: Runner) -> dict:
+    """The update alone over 32 minibatches of 128 rows (a 16-step rollout
+    of the 256 envs, one epoch, no KL stop; the CUDA graph's capture
+    included), timed and then under the profiler."""
+    cfg = dataclasses.replace(runner.cfg.ppo, n_steps=16, n_epochs=1,
+                              target_kl=None)
+    _, _, batch, _ = rollout.collect(
+        runner.env, runner.policy, runner._final_env_state, runner._final_obs,
+        runner.generator, cfg.n_steps, cfg.gamma)
+    adv, ret = gae.compute_gae(batch.rewards, batch.values, batch.dones.float(),
+                               batch.last_values, cfg.gamma, cfg.gae_lambda)
+    m = N_ENVS * cfg.n_steps
+    args = [x.reshape((m,) + x.shape[2:]) for x in (
+        batch.obs, batch.actions, batch.log_probs, batch.values, adv, ret)]
+
+    def run():
+        return ppo.update(runner.policy, runner.opt, cfg, runner.opt_state,
+                          *args, runner.generator, num_envs=N_ENVS)
+
+    run()                                           # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, upd = run()
+    secs = time.perf_counter() - t0                 # the update ends on the host
+    n_mb = upd.n_minibatches_done
+    assert n_mb == m // cfg.batch_size
+    res = profile(f"update, {n_mb:g} minibatches of {cfg.batch_size} rows", run,
+                  secs)
+    print(f"update: {n_mb / secs:.1f} minibatches/s unprofiled "
+          f"({secs * 1e3 / n_mb:.3f} ms each), {res['activities'] / n_mb:.1f} "
+          f"device activities a minibatch [{card}]")
+    return res
+
+
+def phase_train(card: str, scenes, eval_scenes) -> dict:
+    """Runner.train at the flagship recipe's full size; returns each
+    kernel's launches in that run."""
+    cfg = train_config()
+    assert (cfg.env.num_envs, cfg.env.camera.height, cfg.env.renderer.resolution,
+            cfg.ppo.lr_schedule, cfg.runner.eval_camera) == (
+        N_ENVS, HW, RES, "linear", EVAL_HW)
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    runner = Runner(cfg, scenes=scenes, eval_scenes=eval_scenes, log_dir=log_dir)
+    try:
+        before = {k: v.clone() for k, v in runner.variables().items()}
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = runner.train(TRAIN_ITERS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launches()
+        peak = torch.cuda.max_memory_allocated()
+
+        # setup reset, 128 steps an iteration, one eval (reset + 30 steps;
+        # zbuf_impl=mxu builds no init-view cache)
+        n_eval = 1 + runner.eval_env.cfg.max_episode_length
+        expect = {name: 1 + TRAIN_ITERS * cfg.ppo.n_steps + n_eval
+                  for name in KERNELS}
+        if counts != expect:
+            raise AssertionError(f"train launched {counts}, expected {expect}")
+        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        assert [rec["step"] for rec in logged] == list(range(1, TRAIN_ITERS + 1))
+        total = cfg.ppo.n_epochs * cfg.ppo.total_iters * (
+            cfg.ppo.n_steps * N_ENVS // cfg.ppo.batch_size)
+        for rec in logged:
+            for k in _METRIC_KEYS:
+                if not math.isfinite(rec[k]):
+                    raise AssertionError(f"train: non-finite {k} at iteration "
+                                         f"{rec['step']}")
+            if not 1 <= rec["train/n_minibatches"] <= total // cfg.ppo.total_iters:
+                raise AssertionError(f"train: {rec['train/n_minibatches']} "
+                                     "minibatches")
+        count = runner.opt_state.count
+        assert count == sum(rec["train/n_minibatches"] for rec in logged)
+        lr = metrics["train/learning_rate"]
+        if not (lr == runner.opt.lr(count) and
+                math.isclose(lr, cfg.ppo.learning_rate * (1 - count / total),
+                             rel_tol=1e-6)):
+            raise AssertionError(f"train: learning rate {lr} at count {count}")
+        # every parameter and running stat, but the BN counters (always 0)
+        # and the conv biases ahead of a BN, whose gradient is 0 in exact
+        # arithmetic (Adam moves them by rounding noise, or not at all)
+        after = runner.variables()
+        for k, v in after.items():
+            if torch.equal(before[k], v) and not k.endswith((
+                    "num_batches_tracked", "grid_conv1.bias", "grid_conv2.bias")):
+                raise AssertionError(f"train: {k} did not change")
+        assert math.isfinite(metrics["eval/final_coverage"])
+
+        for rec in logged:
+            mb = rec["train/n_minibatches"]
+            print(f"train: iteration {rec['step']}"
+                  f"{' (warm-up)' if rec['step'] == 1 else ''}: "
+                  f"{rec['time/iter_seconds']:.3f} s = rollout "
+                  f"{rec['time/rollout']:.3f} + gae {rec['time/gae']:.4f} + "
+                  f"update {rec['time/update']:.3f} s (+ fetch); "
+                  f"{rec['time/fps']:.1f} env-steps/s; update {mb:g} "
+                  f"minibatches, {mb / rec['time/update']:.1f}/s; approx_kl "
+                  f"{rec['train/approx_kl']:.5f}, episode reward "
+                  f"{rec['rollout/episode_reward']:.3f} [{card}]")
+        print(f"train: {TRAIN_ITERS} iterations + eval + checkpoints in "
+              f"{secs:.3f} s, eval {metrics['time/eval_seconds']:.3f} s "
+              f"(final coverage {metrics['eval/final_coverage']:.4f}); Adam "
+              f"count {count}, learning rate {lr:.6g}; peak memory "
+              f"{peak / 2 ** 30:.2f} GiB [{card}]")
+
+        # a fresh Runner restored from the checkpoint written at the end
+        models = os.path.join(log_dir, "models")
+        fresh = Runner(cfg, scenes=scenes, log_dir=log_dir)
+        step = fresh.restore(models)
+        if step != runner.global_step or fresh.global_step != step:
+            raise AssertionError(f"restored step {step}, ran {runner.global_step}")
+        restored = fresh.variables()
+        for k, v in after.items():
+            if not torch.equal(restored[k], v):
+                raise AssertionError(f"restored {k} differs")
+        for moment in ("mu", "nu"):
+            for k, v in getattr(runner.opt_state, moment).items():
+                if not torch.equal(getattr(fresh.opt_state, moment)[k], v):
+                    raise AssertionError(f"restored Adam {moment} {k} differs")
+        assert fresh.opt_state.count == count
+        print(f"train: a fresh Runner restored from rl_model_{step}_steps holds "
+              "the same parameters, BatchNorm stats, Adam state and step")
+        del fresh
+
+        _profile_update(card, runner)
+    finally:
+        runner.close()
+        shutil.rmtree(log_dir, ignore_errors=True)
+    return counts
 
 
 def phase_cache_pairs(card: str, scenes, pairs: int) -> None:
@@ -638,7 +816,9 @@ def main() -> None:
     phase_golden()
     rollout_counts, rollout_ms = phase_rollout(card, rollout_scenes)
     eval_counts, eval_ms = phase_eval(card, eval_scenes)
-    by_path = {"rollout": rollout_counts, "eval": eval_counts}
+    train_counts = phase_train(card, rollout_scenes, eval_scenes)
+    by_path = {"rollout": rollout_counts, "eval": eval_counts,
+               "train": train_counts}
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         kernels.append({

@@ -8,8 +8,9 @@ functions on batched tensors, an explicit device, explicit
 kernels here: the per-point image gather (``csrc/gather_image.cu``,
 ``ops/gather.py``), the voxel hit scatter (``csrc/scatter_cells_any.cu``,
 ``ops/scatter.py``) and the fused splat z-buffer + visibility
-(``csrc/zbuf_visible.cu``, ``ops/fused_splat.py``).  The package never
-imports jax; the JAX package stays the reference its tests are held
-against.
+(``csrc/zbuf_visible.cu``, ``ops/fused_splat.py``).  Training runs through
+``algo/runner.py`` (rollout, GAE, the PPO update) from the CLIs under
+``train/``.  The package never imports jax; the JAX package stays the
+reference its tests are held against.
 """
 __version__ = "0.1.0"

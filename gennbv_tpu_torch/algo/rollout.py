@@ -15,7 +15,7 @@ import torch
 
 
 class RolloutBatch(NamedTuple):
-    obs: torch.Tensor        # [T, N, D]
+    obs: torch.Tensor        # [T, N, D] float32 or bfloat16
     actions: torch.Tensor    # [T, N, 6] int32
     rewards: torch.Tensor    # [T, N]  (bootstrap-adjusted)
     dones: torch.Tensor      # [T, N] bool
@@ -39,14 +39,17 @@ class RolloutStats(NamedTuple):
 
 @torch.no_grad()
 def collect(env, policy, env_state, obs: torch.Tensor,
-            generator: torch.Generator, n_steps: int, gamma: float):
+            generator: torch.Generator, n_steps: int, gamma: float,
+            obs_dtype: torch.dtype = torch.float32):
     """Step `env` n_steps times with actions from ``policy.act(obs,
     generator)``; the policy runs in eval mode (BN running stats) and is
     put back in its previous mode afterwards.  Observations are stored in
-    float32.  Returns (env_state', obs', RolloutBatch, RolloutStats)."""
+    `obs_dtype` (float32, or bfloat16 to halve the rollout's largest
+    buffer; ``runner.obs_dtype``).  Returns (env_state', obs',
+    RolloutBatch, RolloutStats)."""
     was_training = policy.training
     policy.eval()
-    obs_seq = torch.empty((n_steps, *obs.shape), dtype=torch.float32,
+    obs_seq = torch.empty((n_steps, *obs.shape), dtype=obs_dtype,
                           device=obs.device)
     steps = []
     try:

@@ -6,7 +6,7 @@ port's own ``spec``.  The JAX package's config cannot be imported here:
 ``import gennbv_tpu.config`` runs ``gennbv_tpu/__init__.py``'s package
 imports, which pull in jax.
 
-Renderer settings the port does not implement yet raise
+Renderer and multi-device settings the port does not implement yet raise
 ``NotImplementedError`` naming the ROADMAP item that brings them, at
 construction (so also from ``apply_overrides``); they are never silently
 ignored.  ``gather_impl`` and ``scatter_impl`` are accepted for config
@@ -211,8 +211,15 @@ class RunnerConfig:
     num_slices: int = 1
     model_axis: int = 1
     profile_dir: str = ""
+    # accepted; the port's loop is synchronous (algo/runner.py)
     pipeline_depth: int = 2
     obs_dtype: str = "float32"      # rollout obs storage dtype
+
+    def __post_init__(self):
+        for name in ("num_devices", "num_slices", "model_axis"):
+            if getattr(self, name) > 1:
+                raise _unsupported(f"runner.{name}={getattr(self, name)}",
+                                   "Queue 1 item 13")
 
 
 @dataclass

@@ -10,6 +10,8 @@ collections.  Imports no JAX.
   (both are cross-correlations over the same (x, y, z) grid axes);
 - BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
   running_mean/running_var.
+
+``jax_opt_state_to_port`` carries optax's Adam state over the same way.
 """
 from __future__ import annotations
 
@@ -18,14 +20,17 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from gennbv_tpu_torch.algo.ppo import AdamState
+
 
 def _t(x: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
-def jax_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    params, stats = variables["params"], variables["batch_stats"]
-    enc, enc_stats = params["encoder"], stats["encoder"]
+def _params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A tree shaped like the policy's ``params`` -> the parameters of the
+    state_dict."""
+    enc = params["encoder"]
     sd: dict[str, torch.Tensor] = {}
 
     def dense(prefix: str, p: Mapping[str, Any]) -> None:
@@ -39,12 +44,47 @@ def jax_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         sd[f"encoder.grid_conv{i}.weight"] = _t(conv["kernel"]).permute(
             4, 3, 0, 1, 2).contiguous()
         sd[f"encoder.grid_conv{i}.bias"] = _t(conv["bias"])
-        bn, bn_stats = enc[f"grid_bn{i}"], enc_stats[f"grid_bn{i}"]
+        bn = enc[f"grid_bn{i}"]
         sd[f"encoder.grid_bn{i}.weight"] = _t(bn["scale"])
         sd[f"encoder.grid_bn{i}.bias"] = _t(bn["bias"])
-        sd[f"encoder.grid_bn{i}.running_mean"] = _t(bn_stats["mean"])
-        sd[f"encoder.grid_bn{i}.running_var"] = _t(bn_stats["var"])
-        sd[f"encoder.grid_bn{i}.num_batches_tracked"] = torch.tensor(0)
     dense("action_net", params["action_net"])
     dense("value_net", params["value_net"])
     return sd
+
+
+def jax_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    sd = _params(variables["params"])
+    enc_stats = variables["batch_stats"]["encoder"]
+    for i in (1, 2):
+        bn_stats = enc_stats[f"grid_bn{i}"]
+        sd[f"encoder.grid_bn{i}.running_mean"] = _t(bn_stats["mean"])
+        sd[f"encoder.grid_bn{i}.running_var"] = _t(bn_stats["var"])
+        sd[f"encoder.grid_bn{i}.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def jax_opt_state_to_port(opt_state: Any) -> AdamState:
+    """optax's state of ``ppo.make_optimizer``'s chain -> the port's
+    ``AdamState``: Adam's mu and nu trees take the parameters' key mapping
+    and transposes, and the count is Adam's, which the schedule's count
+    (when the chain has one) must equal."""
+    adam, counts = None, []
+
+    def walk(node: Any) -> None:
+        nonlocal adam
+        fields = getattr(node, "_fields", ())     # optax states are NamedTuples
+        if "mu" in fields and "nu" in fields:
+            adam = node
+        elif "count" in fields:
+            counts.append(int(np.asarray(node.count)))
+        elif isinstance(node, tuple):
+            for child in node:
+                walk(child)
+
+    walk(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (mu, nu, count) in the optax state")
+    count = int(np.asarray(adam.count))
+    if any(c != count for c in counts):
+        raise ValueError(f"schedule counts {counts} differ from Adam's {count}")
+    return AdamState(_params(adam.mu), _params(adam.nu), count)

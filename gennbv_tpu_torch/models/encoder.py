@@ -15,6 +15,7 @@ permutes to channels-last before ``grid_fc``, so converted weights line up.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gennbv_tpu_torch import spec
@@ -31,9 +32,45 @@ def positional_encoding(positions: torch.Tensor, freqs: int = 2) -> torch.Tensor
     return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=-1)
 
 
+class BatchNorm(nn.modules.batchnorm._BatchNorm):
+    """Batch normalisation over channel axis 1 of an [N, C, ...] input, with
+    the train-mode semantics of Flax's ``nn.BatchNorm`` (the JAX encoder's):
+    the batch variance is the biased one (Flax computes it as ``E[x^2] -
+    E[x]^2`` clipped at 0, equal up to rounding), and it both normalises
+    the batch and enters the running variance.
+    ``torch.nn.BatchNorm3d`` would put the unbiased variance, n/(n-1)
+    times larger, into the running stats, which the eval-mode policy then
+    reads; the drift would grow with every PPO minibatch.  The running
+    stats move as ``(1 - momentum) * old + momentum * batch`` (momentum 0.1
+    is Flax's 0.9).  ``num_batches_tracked`` stays 0, as Flax has no such
+    counter.  Eval mode normalises with the running stats, as PyTorch's
+    does; the state_dict keys are PyTorch's."""
+
+    def _check_input_dim(self, x: torch.Tensor) -> None:
+        if x.dim() < 2:
+            raise ValueError(f"expected an [N, C, ...] input, got {x.dim()}-D")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._check_input_dim(x)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, [0, *range(2, x.dim())], correction=0)
+            stats = [self.running_mean, self.running_var]
+            torch._foreach_mul_(stats, 1 - self.momentum)
+            torch._foreach_add_(stats, [mean, var], alpha=self.momentum)
+        # without running stats, PyTorch normalises with the biased batch
+        # variance too (it is only its running-stat update that is unbiased)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
 class HybridEncoder(nn.Module):
-    """obs [N, >= 8600] -> feature [N, fused_dim].  BatchNorm momentum 0.1
-    (Flax's 0.9) and eps 1e-5; the rollout runs it in eval mode."""
+    """obs [N, >= 8600] -> feature [N, fused_dim].  Its two BatchNorms take
+    Flax's train-mode statistics (``BatchNorm``: the biased batch variance
+    in the running stats, momentum 0.1 = Flax's 0.9, eps 1e-5); the rollout
+    and the eval run it in eval mode, the PPO update in train mode."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device | str = "cuda"):
         super().__init__()
@@ -43,9 +80,9 @@ class HybridEncoder(nn.Module):
         self.pose_fc1 = nn.Linear(pose_in, hid, device=device)
         self.pose_fc2 = nn.Linear(hid, hid, device=device)
         self.grid_conv1 = nn.Conv3d(1, c, 3, stride=2, device=device)
-        self.grid_bn1 = nn.BatchNorm3d(c, eps=1e-5, momentum=0.1, device=device)
+        self.grid_bn1 = BatchNorm(c, eps=1e-5, momentum=0.1, device=device)
         self.grid_conv2 = nn.Conv3d(c, c, 3, stride=2, device=device)
-        self.grid_bn2 = nn.BatchNorm3d(c, eps=1e-5, momentum=0.1, device=device)
+        self.grid_bn2 = BatchNorm(c, eps=1e-5, momentum=0.1, device=device)
         g = spec.GRID_SIZE
         for _ in range(2):
             g = (g - 3) // 2 + 1                           # 20 -> 9 -> 4

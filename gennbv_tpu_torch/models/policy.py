@@ -21,7 +21,7 @@ from torch import nn
 from gennbv_tpu_torch import spec
 from gennbv_tpu_torch.config import ModelConfig
 from gennbv_tpu_torch.models import distributions
-from gennbv_tpu_torch.models.encoder import HybridEncoder
+from gennbv_tpu_torch.models.encoder import BatchNorm, HybridEncoder
 from gennbv_tpu_torch.ops import fp32
 
 
@@ -52,7 +52,7 @@ class ActorCriticPolicy(nn.Module):
                                          generator=generator)
                 bound = 1.0 / math.sqrt(m.weight[0].numel())
                 nn.init.uniform_(m.bias, -bound, bound, generator=generator)
-            elif isinstance(m, nn.BatchNorm3d):
+            elif isinstance(m, BatchNorm):
                 m.reset_parameters()
         for head, gain in ((self.action_net, 0.01), (self.value_net, 1.0)):
             nn.init.orthogonal_(head.weight, gain, generator=generator)

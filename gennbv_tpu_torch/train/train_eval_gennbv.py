@@ -1,0 +1,50 @@
+"""Training with periodic held-out-scene evaluation, in the PyTorch port
+(reference: gennbv/train/train_eval_gennbv.py -- 256 train envs + 50 eval
+envs; port of ``gennbv_tpu/train/train_eval_gennbv.py``).  The eval batch
+is a second env on the same device.
+
+    python -m gennbv_tpu_torch.train.train_eval_gennbv --num_envs 256 \\
+        --set env.camera.height=128 --set env.camera.width=128 \\
+        --set runner.eval_camera=400
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from gennbv_tpu_torch import spec
+from gennbv_tpu_torch.config import apply_overrides
+from gennbv_tpu_torch.env import make_scenes
+from gennbv_tpu_torch.train.train_gennbv import (build_argparser,
+                                                 config_from_args, run)
+
+
+def main(argv=None):
+    p = build_argparser()
+    p.add_argument("--eval_seed", type=int, default=100)
+    p.add_argument("--eval_dataset", type=str, default=None,
+                   help="scene dataset for the held-out eval batch; not "
+                        "implemented in the port, whose scenes are "
+                        "procedural only")
+    args = p.parse_args(argv)
+    if args.eval_dataset:
+        raise NotImplementedError(
+            "--eval_dataset is not implemented in gennbv_tpu_torch yet "
+            "(ROADMAP.md Queue 1 item 10): its scenes are procedural only")
+    cfg = config_from_args(args)
+    if cfg.runner.eval_freq == 0:
+        # reference eval_freq = 500000 / num_envs env-steps ~= every 15 iters
+        cfg = apply_overrides(cfg, ("runner.eval_freq=15",))
+
+    from gennbv_tpu_torch.algo.runner import Runner
+
+    # held-out eval scenes: one per eval env, another generator seed
+    eval_scene_cfg = dataclasses.replace(
+        cfg.env.scene, num_scenes=spec.EVAL_NUM_ENVS, seed=args.eval_seed)
+    eval_scenes = make_scenes(eval_scene_cfg, cfg.env.renderer.resolution,
+                              args.device)
+
+    run(Runner(cfg, eval_scenes=eval_scenes, device=args.device), args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,77 @@
+"""Checkpoints of {policy, optimizer state, step} (port of
+``gennbv_tpu/utils/checkpoint.py``).
+
+The writer policy is the reference's (gennbv/callback.py:25-70), under the
+JAX package's names: periodic ``rl_model_<steps>_steps`` saves plus
+``rl_model_best_<metric>``.  Each checkpoint is one ``torch.save`` file of
+host tensors: the policy's state_dict, the Adam state (mu and nu keyed by
+parameter name, and the count) and the global step.  It is written beside
+its name and then renamed, so a reader never sees a partial file.
+"""
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+
+from gennbv_tpu_torch.algo.ppo import AdamState
+
+
+def _host(tensors: dict) -> dict:
+    return {k: v.detach().cpu() for k, v in tensors.items()}
+
+
+class CheckpointManager:
+    def __init__(self, ckpt_dir: str):
+        self.ckpt_dir = os.path.abspath(ckpt_dir)
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self.ckpt_dir, name)
+
+    def save(self, name: str, policy: torch.nn.Module, opt_state: AdamState,
+             step: int):
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+        path = self._path(name)
+        torch.save({"policy": _host(policy.state_dict()),
+                    "opt_state": {"mu": _host(opt_state.mu),
+                                  "nu": _host(opt_state.nu),
+                                  "count": opt_state.count},
+                    "step": step}, path + ".tmp")
+        os.replace(path + ".tmp", path)
+
+    def save_step(self, step: int, policy, opt_state: AdamState):
+        self.save(f"rl_model_{step}_steps", policy, opt_state, step)
+
+    def save_best(self, metric_name: str, policy, opt_state: AdamState,
+                  step: int):
+        self.save(f"rl_model_best_{metric_name}", policy, opt_state, step)
+
+    def restore(self, name: str, device: torch.device | str = "cpu"
+                ) -> tuple[dict, AdamState, int]:
+        """(policy state_dict, AdamState, step) of a checkpoint, on
+        `device`."""
+        raw = torch.load(self._path(name), map_location=device,
+                         weights_only=True)
+        opt = raw["opt_state"]
+        return raw["policy"], AdamState(opt["mu"], opt["nu"], opt["count"]), \
+            raw["step"]
+
+    def restore_policy(self, name: str, device: torch.device | str = "cpu"
+                       ) -> dict:
+        """Only the policy's state_dict -- for play/eval/export, or a
+        warm start that keeps a fresh optimizer."""
+        return self.restore(name, device)[0]
+
+    def latest_step(self) -> Optional[int]:
+        steps = []
+        if not os.path.isdir(self.ckpt_dir):
+            return None
+        for d in os.listdir(self.ckpt_dir):
+            parts = d.split("_")
+            if d.startswith("rl_model_") and d.endswith("_steps"):
+                try:
+                    steps.append(int(parts[2]))
+                except ValueError:
+                    pass
+        return max(steps) if steps else None

@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card: each kernel against its plain
-version, the mapping golden, and a rollout and an eval with the kernels in
-use.  They skip on a machine without one.  This file imports no jax, so it
+version, the mapping golden, a rollout and an eval with the kernels in
+use, a PPO update against the same update on the CPU, and the train CLI.
+They skip on a machine without one.  This file imports no jax, so it
 also runs where jax is missing; tests/conftest.py imports jax, so there run
 it without the conftest:
 
@@ -234,3 +235,91 @@ def test_eval_launches_each_kernel_per_step(cuda):
     assert counts == {name: 1 + 6 for name in chip_smoke.KERNELS}
     np.testing.assert_array_equal(res.per_env_coverage, mxu.per_env_coverage)
     np.testing.assert_array_equal(res.per_env_auc, mxu.per_env_auc)
+
+
+NARROW = dict(pose_mlp_hidden=32, grid_channels=4, fused_dim=32)
+
+
+def test_update_on_card_matches_cpu(cuda):
+    """One PPO update (8 minibatches of 32 rows over 4 shards, 2 epochs) at
+    a narrow width, on the card and on the CPU from the same weights, data
+    and minibatches.  cuDNN and cuBLAS (full float32, TF32 off) sum in
+    another order than the CPU: the tolerances of tests/test_torch_ppo.py,
+    whose conv biases ahead of a BatchNorm, and the running means that
+    take them in, move by rounding noise only (their gradient is 0 in
+    exact arithmetic)."""
+    from gennbv_tpu_torch import config, spec
+    from gennbv_tpu_torch.algo import ppo
+    from gennbv_tpu_torch.models import distributions
+    from gennbv_tpu_torch.models.policy import ActorCriticPolicy
+
+    cpu = ActorCriticPolicy(config.ModelConfig(**NARROW),
+                            torch.Generator().manual_seed(0), device="cpu")
+    card = ActorCriticPolicy(config.ModelConfig(**NARROW), device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    m, n_envs = 128, 8
+    rng = np.random.default_rng(0)
+    obs = np.concatenate([rng.uniform(-8, 10, (m, spec.STATE_DIM)),
+                          rng.choice([-1.0, 0.0, 1.0], (m, spec.GRID_DIM)),
+                          rng.uniform(0, 255, (m, spec.RGB_DIM))], -1)
+    obs = torch.from_numpy(obs.astype(np.float32))
+    actions = torch.from_numpy(np.stack(
+        [rng.integers(0, k, m) for k in spec.NVEC], -1).astype(np.int32))
+    with torch.no_grad():
+        out = cpu.eval()(obs)
+    logp = distributions.log_prob(out.logits, actions)
+    adv = torch.from_numpy(rng.normal(0, 1, m).astype(np.float32))
+    data = (obs, actions, logp, out.value, adv, adv + out.value)
+    cfg = config.PPOConfig(n_steps=16, batch_size=32, n_epochs=2,
+                           learning_rate=3e-4, minibatch_shards=4, target_kl=None)
+    idx = ppo.minibatch_indices(cfg, m, n_envs, torch.Generator().manual_seed(1))
+    results = []
+    for policy, dev in ((cpu, "cpu"), (card, "cuda")):
+        opt = ppo.make_optimizer(cfg, n_envs)
+        state, metrics = ppo.update(policy, opt, cfg, opt.init(policy),
+                                    *(x.to(dev) for x in data), num_envs=n_envs,
+                                    indices=idx.to(dev))
+        results.append((policy.state_dict(), state, metrics))
+    (sd_c, st_c, m_c), (sd_g, st_g, m_g) = results
+    noise = ("encoder.grid_conv1.bias", "encoder.grid_conv2.bias",
+             "encoder.grid_bn1.running_mean", "encoder.grid_bn2.running_mean")
+    for k, v in sd_c.items():
+        assert sd_g[k].is_cuda
+        np.testing.assert_allclose(sd_g[k].cpu().numpy(), v.numpy(), rtol=0,
+                                   atol=3e-5 if k in noise else 2e-6, err_msg=k)
+    assert st_c.count == st_g.count == 8
+    for k in st_c.mu:
+        if k in noise:
+            continue
+        np.testing.assert_allclose(st_g.mu[k].cpu().numpy(), st_c.mu[k].numpy(),
+                                   rtol=1e-4, atol=5e-8, err_msg=k)
+        np.testing.assert_allclose(st_g.nu[k].cpu().numpy(), st_c.nu[k].numpy(),
+                                   rtol=1e-4, atol=1e-11, err_msg=k)
+    assert m_g.n_minibatches_done == m_c.n_minibatches_done == 8
+    # the explained variance is 1 minus a ratio of float32 variances near 1
+    np.testing.assert_allclose(np.array(m_g), np.array(m_c), rtol=1e-5, atol=1e-6)
+
+
+def test_train_cli_on_card(cuda, tmp_path, capsys):
+    """train_gennbv for 2 iterations at 8 envs on the card: each kernel
+    launches once for the setup reset and once per env step."""
+    import json
+
+    import chip_smoke
+    from gennbv_tpu_torch.train import train_gennbv
+
+    chip_smoke.reset_launches()
+    train_gennbv.main([
+        "--num_envs", "8", "--max_iterations", "2", "--log_dir", str(tmp_path),
+        "--set", "env.camera.height=32", "--set", "env.camera.width=32",
+        "--set", "env.renderer.resolution=16", "--set", "env.scene.num_scenes=8",
+        "--set", "ppo.n_steps=8", "--set", "ppo.batch_size=16"])
+    torch.cuda.synchronize()
+    assert chip_smoke.launches() == {name: 1 + 2 * 8 for name in chip_smoke.KERNELS}
+    assert "final:" in capsys.readouterr().out
+    (run,) = tmp_path.iterdir()
+    logged = [json.loads(line) for line in open(run / "metrics.jsonl")]
+    assert [rec["step"] for rec in logged] == [1, 2]
+    for rec in logged:
+        assert all(np.isfinite(v) for v in rec.values())
+        assert rec["train/n_minibatches"] >= 1

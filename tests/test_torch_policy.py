@@ -57,6 +57,36 @@ def test_logits_and_value_agree(converted):
                                rtol=0, atol=1e-5)
 
 
+def test_train_mode_batchnorm_matches_flax(converted):
+    """A train-mode forward normalises with the batch statistics and moves
+    the running stats as Flax's ``mutable=["batch_stats"]`` apply does,
+    with the biased batch variance.  The n/(n-1) of PyTorch's own
+    BatchNorm3d (n = 16 * 9^3 rows for grid_bn1, 16 * 4^3 for grid_bn2)
+    puts grid_bn1's running variance ~1e-5 relative off on this batch
+    (grid_bn2's more), outside the 1e-6 held here."""
+    model, variables, _ = converted
+    policy = ActorCriticPolicy(ModelConfig(), device="cpu")
+    policy.load_state_dict(convert.jax_to_state_dict(variables))
+    obs = _obs(16, 6)
+    want, mutated = model.apply(variables, jnp.asarray(obs), train=True,
+                                mutable=["batch_stats"])
+    got = policy.train()(torch.from_numpy(obs))
+    np.testing.assert_allclose(got.logits.detach().numpy(), np.asarray(want.logits),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got.value.detach().numpy(), np.asarray(want.value),
+                               rtol=0, atol=1e-5)
+    stats = jax.device_get(mutated["batch_stats"]["encoder"])
+    for i in (1, 2):
+        bn = getattr(policy.encoder, f"grid_bn{i}")
+        old = variables["batch_stats"]["encoder"][f"grid_bn{i}"]
+        for key, buf in (("mean", bn.running_mean), ("var", bn.running_var)):
+            want_stat = np.asarray(stats[f"grid_bn{i}"][key])
+            assert not np.allclose(want_stat, old[key]), "the stats moved"
+            np.testing.assert_allclose(buf.numpy(), want_stat, rtol=1e-6,
+                                       atol=1e-7, err_msg=f"grid_bn{i} {key}")
+        assert bn.num_batches_tracked == 0
+
+
 def test_distribution_functions_agree():
     rng = np.random.default_rng(2)
     logits = (rng.normal(0, 3, (16, spec.NUM_LOGITS))).astype(np.float32)

@@ -47,7 +47,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    checkpoint holds the same parameters, optimizer state and step bit for
    bit; prints each timed iteration's seconds by phase, env-steps/s,
    update minibatches/s, peak memory, and the update's device-busy share,
-   top device ops and device activities per minibatch over 32 minibatches.
+   top device ops and device activities per minibatch over 32 minibatches;
+8. the post-training report on phase 7's run directory:
+   gennbv_tpu_torch/tools/post_run.py's main with --eval_cam 400
+   --point_stride 8 --no-artifacts, at full size (held-out houses, objects
+   zero-shot and the convex probe, 50 scenes each, reset + 30 steps, R=64,
+   the full-width HybridEncoder from the phase-7 checkpoint).  Checks each
+   kernel's exact launch count, that the report has the JAX report's keys
+   (reports/r5_refbudget128/report.json) with finite values, and that each
+   family's coverage, AUC and reward equal evaluate's without the accuracy
+   scan on the same env and policy; holds batched_accuracy and the ray
+   march on 2 envs bit-equal to the same functions on the CPU, and the
+   card's accuracy to float64 scipy cKDTree nearest neighbours (1e-3
+   relative); prints each family's evaluate seconds with and without the
+   scan, the ray march's device time per view, the seconds of the dedupe
+   and of batched_accuracy, and peak memory.  Then train/play.py's main
+   with --ply, --obj and --export on the card: the files are non-empty and
+   the loaded torch.export program's actions equal the eager policy's.
 The last two lines of stdout are the kernel summary with the card's name
 and power limit before them, then the result line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -79,17 +95,24 @@ from gennbv_tpu_torch.algo.runner import _METRIC_KEYS, Runner
 from gennbv_tpu_torch.env import ReconEnv, make_scenes
 from gennbv_tpu_torch.env import scene as scene_lib
 from gennbv_tpu_torch.models.policy import ActorCriticPolicy
+from gennbv_tpu_torch.models import distributions
 from gennbv_tpu_torch.ops import (_cuda, camera, carve, fp32, fused_splat,
-                                  gather, scatter, splat, voxel)
+                                  gather, render, scatter, splat, voxel)
+from gennbv_tpu_torch.tools import post_run
+from gennbv_tpu_torch.train import play
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "mapping_golden.npz")
 FLAGSHIP = os.path.join(ROOT, "reports", "r5_refbudget128", "config.json")
+# the JAX package's report of the flagship run: the keys the port's must have
+REFERENCE_REPORT = os.path.join(ROOT, "reports", "r5_refbudget128",
+                                "report.json")
 TRAIN_ITERS = 3
 N_ENVS, HW, RES, N_STEPS, GAMMA = 256, 128, 64, 128, 0.99
 # surface capacity Q of the 256 seed-0 scenes at R=64 (the fused splat's points)
 ROLLOUT_Q = 11264
 EVAL_HW, EVAL_SEED = 400, 100
+POINT_STRIDE = 8                         # the accuracy scan's pixel stride
 G = spec.GRID_SIZE                       # the 20^3 grid; the carve gathers G^3
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s,
 # and float32 operations/s outside the tensor cores, the rate the bounds
@@ -247,8 +270,12 @@ def _case(label, name, kernel, plain, library, nbytes, ops) -> dict:
     res = {"max_abs_err": err, "ms": _time_ms(kernel), "plain_ms": _time_ms(plain),
            "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": None if library is None else _time_ms(library),
-           "device_launches_per_call": per_call, "kernel_device_ms": device_ms}
-    lib = "none" if library is None else f"{res['library_ms']:.4f} ms"
+           "device_launches_per_call": per_call, "kernel_device_ms": device_ms,
+           # the library call's own device time, profiled as the kernel's
+           "library_device_ms": (None if library is None
+                                 else profile_calls(library)[1])}
+    lib = ("none" if library is None else
+           f"{res['library_ms']:.4f} ms (device {res['library_device_ms']:.4f} ms)")
     print(f"{label}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
           f"library {lib}, bound {bound_ms:.4f} ms ({bound_by}) "
           f"(median, CUDA events); {per_call:g} device launch a call, "
@@ -671,14 +698,13 @@ def _profile_update(card: str, runner: Runner) -> dict:
     return res
 
 
-def phase_train(card: str, scenes, eval_scenes) -> dict:
-    """Runner.train at the flagship recipe's full size; returns each
-    kernel's launches in that run."""
+def phase_train(card: str, scenes, eval_scenes, log_dir: str) -> dict:
+    """Runner.train at the flagship recipe's full size, into the run
+    directory log_dir; returns each kernel's launches in that run."""
     cfg = train_config()
     assert (cfg.env.num_envs, cfg.env.camera.height, cfg.env.renderer.resolution,
             cfg.ppo.lr_schedule, cfg.runner.eval_camera) == (
         N_ENVS, HW, RES, "linear", EVAL_HW)
-    log_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     runner = Runner(cfg, scenes=scenes, eval_scenes=eval_scenes, log_dir=log_dir)
     try:
         before = {k: v.clone() for k, v in runner.variables().items()}
@@ -768,8 +794,236 @@ def phase_train(card: str, scenes, eval_scenes) -> dict:
         _profile_update(card, runner)
     finally:
         runner.close()
-        shutil.rmtree(log_dir, ignore_errors=True)
     return counts
+
+
+def _kdtree_accuracy(deduped, gt_pts, gt_mask) -> dict:
+    """The accuracy metrics from float64 nearest neighbours of
+    scipy.spatial.cKDTree, an independent check of batched_accuracy:
+    mean squared distances x100, averaged over the envs with scan points."""
+    from scipy.spatial import cKDTree
+    s2g, g2s, floor = [], [], []
+    for e, scan in enumerate(deduped):
+        if len(scan) == 0:
+            continue
+        gt = gt_pts[e][gt_mask[e]].astype(np.float64)
+        scan = scan.astype(np.float64)
+        gt_tree = cKDTree(gt)
+        s2g.append(np.mean(gt_tree.query(scan)[0] ** 2))
+        g2s.append(np.mean(cKDTree(scan).query(gt)[0] ** 2))
+        # the nearest OTHER GT point: the second neighbour of each
+        floor.append(np.mean(gt_tree.query(gt, k=2)[0][:, 1] ** 2))
+    s2g, g2s, floor = (np.array(x) * 100.0 for x in (s2g, g2s, floor))
+    return {"mean_accuracy": float((s2g + g2s).mean()),
+            "scan2gt": float(s2g.mean()), "gt2scan": float(g2s.mean()),
+            "floor": float(floor.mean())}
+
+
+def _report_pieces(card: str, env, policy, report: dict) -> dict:
+    """The held-out family's accuracy scan piece by piece on the card:
+    the episodes with their scan, the host dedupe and batched_accuracy,
+    each timed; batched_accuracy and the ray march on 2 envs held equal to
+    the same functions on the CPU; the card's accuracy held to float64 KD
+    trees; the ray march's device time per view."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ep = evaluation.run_episodes(env, policy, POINT_STRIDE)
+    t_episodes = time.perf_counter() - t0          # ends with host copies
+    t0 = time.perf_counter()
+    deduped = evaluation.episode_scans(ep.scan_pts, ep.scan_valid,
+                                       evaluation.before_done_mask(ep.dones))
+    t_dedupe = time.perf_counter() - t0
+    sc = env.scenes
+    sids = ep.scene_id
+    gt = sc.gt_points[sids].cpu().numpy()
+    gm = sc.gt_points_mask[sids].cpu().numpy()
+    vox = ((sc.box_hi[sids] - sc.box_lo[sids]).cpu().numpy().max(axis=1)
+           / sc.grid_res)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = evaluation.batched_accuracy(deduped, gt, gm, vox, device="cuda")
+    t_accuracy = time.perf_counter() - t0          # ends on the host
+    want = report["held_out_houses"]
+    for key, value, digits in (("mean_accuracy_x100m2", acc[0], 3),
+                               ("gt_unseen_frac", acc[4], 4),
+                               ("accuracy_floor_gt_sampling", acc[5], 3)):
+        if round(value, digits) != want[key]:
+            raise AssertionError(f"report: batched_accuracy {key} {value} "
+                                 f"against the report's {want[key]}")
+    points = [len(p) for p in deduped]
+    print(f"report: held_out_houses piece by piece: episodes with the scan "
+          f"{t_episodes:.3f} s, host dedupe {t_dedupe:.3f} s, batched_accuracy "
+          f"{t_accuracy:.3f} s on the card; deduped scan points a scene "
+          f"{min(points)}-{max(points)} (mean {np.mean(points):.0f}), GT "
+          f"points {int(gm.sum(axis=1).max())} at most [{card}]")
+
+    # the card against the CPU on 2 envs: batched_accuracy, and the ray
+    # march of the init view and of a step's view
+    two = dict(deduped=deduped[:2], gt_pts=gt[:2], gt_mask=gm[:2], vox=vox[:2])
+    on_card = evaluation.batched_accuracy(**two, device="cuda")
+    t0 = time.perf_counter()
+    on_cpu = evaluation.batched_accuracy(**two, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    if on_card != on_cpu:
+        raise AssertionError(f"report: batched_accuracy on 2 envs: card "
+                             f"{on_card}, CPU {on_cpu}")
+    sub_rays = evaluation.scan_rays(env, POINT_STRIDE)
+    rng = np.random.default_rng(0)
+    acts = torch.as_tensor(np.stack([rng.integers(0, k, 2) for k in spec.NVEC],
+                                    -1), dtype=torch.int32, device="cuda")
+    for label, poses in (
+            ("init view", evaluation.init_pose(env).expand(2, -1)),
+            ("step view", evaluation.step_poses(
+                env, env.init_state(2)._replace(
+                    episode_len=torch.ones(2, dtype=torch.int32,
+                                           device="cuda")), acts))):
+        r_c2w, t_c2w = camera.pose_to_c2w(poses, env.cfg.camera.z_offset)
+        args = (sc.render_occ[sids[:2]], sc.box_lo[sids[:2]],
+                sc.box_hi[sids[:2]], sub_rays, r_c2w, t_c2w)
+        static = (sc.grid_res, 3 * sc.grid_res, env.cfg.camera.depth_max)
+        card_out = render.render_depth(*args, *static)
+        cpu_out = render.render_depth(*(a.cpu() for a in args), *static)
+        for name, c, h in zip(("depth", "hit"), card_out, cpu_out):
+            if not torch.equal(c.cpu(), h):
+                raise AssertionError(f"report: raymarch {label} {name}: card "
+                                     "differs from the CPU")
+    print(f"report: on 2 envs, batched_accuracy and the ray march of the init "
+          f"and a step's view are bit-equal on the card and the CPU "
+          f"(tolerance 0; the CPU's batched_accuracy took {t_cpu:.3f} s)")
+
+    kd = _kdtree_accuracy(deduped, gt, gm)
+    for key, value in (("mean_accuracy", acc[0]), ("scan2gt", acc[1]),
+                       ("gt2scan", acc[2]), ("floor", acc[5])):
+        if not math.isclose(value, kd[key], rel_tol=1e-3):
+            raise AssertionError(f"report: {key} {value} on the card against "
+                                 f"{kd[key]} from float64 KD trees")
+    print(f"report: held_out_houses accuracy on the card {acc[0]:.6f} "
+          f"(scan2gt {acc[1]:.6f}, gt2scan {acc[2]:.6f}, floor {acc[5]:.6f}) "
+          f"against float64 cKDTree {kd['mean_accuracy']:.6f} "
+          f"({kd['scan2gt']:.6f}, {kd['gt2scan']:.6f}, {kd['floor']:.6f}), "
+          "within 1e-3 relative")
+
+    # the ray march of one view of every env (the init view), timed
+    n = env.cfg.num_envs
+    r_c2w, t_c2w = camera.pose_to_c2w(evaluation.init_pose(env).expand(n, -1),
+                                      env.cfg.camera.z_offset)
+
+    def view():
+        return render.render_depth(
+            sc.render_occ[sids], sc.box_lo[sids], sc.box_hi[sids], sub_rays,
+            r_c2w, t_c2w, sc.grid_res, 3 * sc.grid_res, env.cfg.camera.depth_max)
+
+    per_call, device_ms, _ = profile_calls(view, calls=5)
+    wall_ms = _time_ms(view, trials=5, calls=2)
+    print(f"report: raymarch of one view of {n} envs x {sub_rays.shape[0]} rays "
+          f"(R={sc.grid_res}, at most {3 * sc.grid_res} steps): "
+          f"{device_ms:.4f} ms of device time in {per_call:g} device "
+          f"activities (profiler), {wall_ms:.3f} ms a call (CUDA events) "
+          f"[{card}]")
+    return {"episodes_s": t_episodes, "dedupe_s": t_dedupe,
+            "batched_accuracy_s": t_accuracy, "raymarch_view_device_ms": device_ms,
+            "raymarch_view_ms": wall_ms, "raymarch_view_activities": per_call}
+
+
+def phase_report(card: str, run_dir: str) -> dict:
+    """The port's post_run on phase 7's run directory at full size (three
+    families x 50 scenes x (reset + 30 steps) under the 400x400 camera,
+    point_stride 8), then play with --ply, --obj and --export; returns each
+    kernel's launches in the post_run call."""
+    argv = [run_dir, "--eval_cam", str(EVAL_HW), "--point_stride",
+            str(POINT_STRIDE), "--no-artifacts"]
+    with open(os.path.join(run_dir, "config.json")) as f:
+        raw = json.load(f)
+    env_cfg = post_run.run_env_config(raw, EVAL_HW)
+    fams = post_run.families(raw, 100)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    report = post_run.main(argv)
+    secs = time.perf_counter() - t0                # ends on the host
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    # each family: its env's init-view cache where zbuf_impl=pallas, the
+    # reset and one launch a step
+    per_family = (1 + env_cfg.max_episode_length
+                  + (env_cfg.renderer.zbuf_impl == "pallas"))
+    expect = {name: len(fams) * per_family for name in KERNELS}
+    if counts != expect:
+        raise AssertionError(f"report launched {counts}, expected {expect}")
+    with open(REFERENCE_REPORT) as f:
+        reference = json.load(f)
+    if set(report) != {"checkpoint", *(tag for tag, _, _ in fams)}:
+        raise AssertionError(f"report: keys {sorted(report)}")
+    for tag, _, _ in fams:
+        if set(report[tag]) != set(reference[tag]):
+            raise AssertionError(f"report: {tag} has keys {sorted(report[tag])}, "
+                                 f"the JAX report {sorted(reference[tag])}")
+        if not all(math.isfinite(v) for v in report[tag].values()):
+            raise AssertionError(f"report: {tag} not finite: {report[tag]}")
+    print(f"report: post_run.main {' '.join(argv[1:])} on phase 7's run "
+          f"({report['checkpoint']}) in {secs:.3f} s, {len(fams)} families x "
+          f"{env_cfg.num_envs} scenes x (reset + {env_cfg.max_episode_length} "
+          f"steps); peak memory {peak / 2 ** 30:.2f} GiB [{card}]")
+
+    models = os.path.join(run_dir, "models")
+    policy = post_run.load_policy(raw, models, report["checkpoint"], "cuda")
+    envs = {}
+    for tag, dataset, seed in fams:
+        env = post_run.family_env(env_cfg, raw, dataset, seed, "cuda")
+        envs[tag] = env
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = evaluation.evaluate(env, policy, POINT_STRIDE,
+                                    compute_accuracy=False)
+        t_plain = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        full = evaluation.evaluate(env, policy, POINT_STRIDE)
+        t_full = time.perf_counter() - t0
+        # the scan does not disturb the env, and the report is reproducible
+        for key, value in (("final_coverage", plain.mean_final_coverage),
+                           ("mean_AUC", plain.mean_auc),
+                           ("mean_reward", plain.mean_reward)):
+            if round(value, 4) != report[tag][key]:
+                raise AssertionError(f"report: {tag} {key} {value} without the "
+                                     f"scan, {report[tag][key]} in the report")
+        if post_run.family_report(full) != report[tag]:
+            raise AssertionError(f"report: {tag} differs on a second run")
+        print(f"report: {tag}: {report[tag]}; evaluate {t_full:.3f} s with the "
+              f"accuracy scan, {t_plain:.3f} s without [{card}]")
+    pieces = _report_pieces(card, envs["held_out_houses"], policy, report)
+
+    # play: the PLY, the OBJ and the exported policy, on the card
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_play_") as d:
+        out = {k: os.path.join(d, f"recon.{k}") for k in ("ply", "obj")}
+        exported = os.path.join(d, "policy.pt2")
+        t0 = time.perf_counter()
+        play.main(["--ckpt", os.path.join(models, report["checkpoint"]),
+                   "--ply", out["ply"], "--obj", out["obj"],
+                   "--export", exported, "--device", "cuda"]
+                  + post_run.play_overrides(raw, EVAL_HW))
+        t_play = time.perf_counter() - t0
+        with open(out["ply"]) as f:
+            n_pts = int(f.read().splitlines()[2].split()[-1])
+        with open(out["obj"]) as f:
+            n_faces = sum(line.startswith("f ") for line in f)
+        if n_pts == 0 or n_faces == 0:
+            raise AssertionError(f"play: {n_pts} PLY points, {n_faces} OBJ faces")
+        env = envs["held_out_houses"]
+        _, reset_out = env.reset(env.cfg.num_envs)
+        policy.eval()
+        with torch.no_grad():
+            eager = distributions.mode(policy(reset_out.obs).logits)
+        got = play.load_exported_policy(exported)(reset_out.obs)
+        if not torch.equal(got, eager):
+            raise AssertionError("play: the exported policy's actions differ "
+                                 "from the eager policy's")
+    print(f"play: --ply ({n_pts} points), --obj ({n_faces} faces) and --export "
+          f"in {t_play:.3f} s; the loaded torch.export program's actions equal "
+          f"the eager policy's on a {tuple(reset_out.obs.shape)} observation "
+          f"batch [{card}]")
+    return counts, pieces
 
 
 def phase_cache_pairs(card: str, scenes, pairs: int) -> None:
@@ -816,9 +1070,14 @@ def main() -> None:
     phase_golden()
     rollout_counts, rollout_ms = phase_rollout(card, rollout_scenes)
     eval_counts, eval_ms = phase_eval(card, eval_scenes)
-    train_counts = phase_train(card, rollout_scenes, eval_scenes)
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        train_counts = phase_train(card, rollout_scenes, eval_scenes, run_dir)
+        report_counts, _ = phase_report(card, run_dir)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
     by_path = {"rollout": rollout_counts, "eval": eval_counts,
-               "train": train_counts}
+               "train": train_counts, "report": report_counts}
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         kernels.append({

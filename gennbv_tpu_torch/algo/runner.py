@@ -226,6 +226,14 @@ class Runner:
             })
             if np.isfinite(res.mean_accuracy_cm):
                 metrics["eval/mean_accuracy"] = res.mean_accuracy_cm
+                # the accuracy decomposition (EvalResult)
+                metrics["eval/accuracy_scan2gt"] = res.accuracy_scan2gt
+                metrics["eval/accuracy_gt2scan"] = res.accuracy_gt2scan
+                metrics["eval/accuracy_gt2scan_seen"] = (
+                    res.accuracy_gt2scan_seen)
+                metrics["eval/gt_unseen_frac"] = res.gt_unseen_frac
+                metrics["eval/accuracy_floor_gt_sampling"] = (
+                    res.accuracy_floor_gt_sampling)
             # best-by-held-out-eval checkpoint (the reference's
             # EvalCallback best_model, callbacks.py:685-693)
             if self.ckpt is not None and (

@@ -87,7 +87,8 @@ class SceneConfig:
     # world box of the mapped region; x,y in [-extent/2, extent/2], z in [0, extent_z]
     extent_xy: float = 10.0
     extent_z: float = 6.0
-    # the port generates "procedural" houses only (env/scene.py)
+    # a procedural family: "procedural" (houses) | "objects" | "convex"
+    # (env/scene.py; terrain and dataset directories are not ported yet)
     dataset: str = "procedural"
     # procedural generator difficulty: "standard" | "hard"
     difficulty: str = "standard"

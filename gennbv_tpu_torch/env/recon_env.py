@@ -84,6 +84,8 @@ class ReconEnv:
         def t(x, dtype=torch.float32):
             return torch.as_tensor(x, dtype=dtype, device=self.device)
 
+        self.cam_rays = t(camera.camera_rays(cam.height, cam.width,
+                                             cam.horizontal_fov_deg))
         self.intrinsics = t(camera.intrinsics(cam.height, cam.width,
                                               cam.horizontal_fov_deg))
         self.action_unit = t(spec.ACTION_UNIT)

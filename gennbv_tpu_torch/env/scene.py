@@ -17,8 +17,10 @@ A scene is:
   voxel-center set at render resolution, padded to a common count Q (a
   multiple of 1024), which the splat renderer projects.
 
-Only ``dataset="procedural"`` is ported; the object families, terrain and
-dataset directories raise (ROADMAP Queue 1 item 10).
+The procedural families are ported: ``procedural`` (houses), ``objects``
+(the zero-shot object family) and ``convex`` (single convex primitives, the
+chamfer-floor probe).  ``terrain`` raises (ROADMAP Queue 1 item 11, with
+``env/terrain.py``), and so do dataset directories (item 10).
 """
 from __future__ import annotations
 
@@ -29,6 +31,10 @@ import torch
 
 from gennbv_tpu_torch.config import SceneConfig
 from gennbv_tpu_torch.ops import fp32
+
+
+# the scene families generate_procedural builds
+PROCEDURAL_FAMILIES = ("procedural", "objects", "convex")
 
 
 class SceneSet(NamedTuple):
@@ -390,9 +396,10 @@ def _surface_points(surface: np.ndarray, box_lo: np.ndarray, vsize: np.ndarray,
 def generate_procedural(cfg: SceneConfig, grid_res: int,
                         max_gt_points: int = 8192,
                         device: torch.device | str = "cuda") -> SceneSet:
-    """Build a SceneSet of procedural houses (host-side numpy, then one
-    copy of each array to `device`, the card unless the caller asks for
-    the CPU)."""
+    """Build a SceneSet of procedural scenes of the family cfg.dataset
+    names: houses ("procedural"), "objects" or "convex" (host-side numpy,
+    then one copy of each array to `device`, the card unless the caller
+    asks for the CPU)."""
     if cfg.difficulty not in ("standard", "hard"):
         raise ValueError(
             f"unknown scene difficulty {cfg.difficulty!r}; one of standard|hard")
@@ -468,11 +475,15 @@ def make_scenes(cfg: SceneConfig, grid_res: int,
     """The scene set a config names, on `device`.  Unlike the JAX package
     the port keeps no on-disk scene cache: it writes nothing outside the
     caller's control."""
-    if cfg.dataset != "procedural":
+    if cfg.dataset == "terrain":
         raise NotImplementedError(
-            f"scene.dataset={cfg.dataset!r} is not implemented in "
-            "gennbv_tpu_torch yet (ROADMAP.md Queue 1 item 10); only "
-            "'procedural' is")
+            "scene.dataset='terrain' is not implemented in gennbv_tpu_torch "
+            "yet (ROADMAP.md Queue 1 item 11, with env/terrain.py)")
+    if cfg.dataset not in PROCEDURAL_FAMILIES:
+        raise NotImplementedError(
+            f"scene.dataset={cfg.dataset!r}: dataset directories are not "
+            "implemented in gennbv_tpu_torch yet (ROADMAP.md Queue 1 item "
+            f"10); the procedural families are {PROCEDURAL_FAMILIES}")
     return generate_procedural(cfg, grid_res, device=device)
 
 

@@ -64,6 +64,18 @@ def rotate(d: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y, z], dim=-1)
 
 
+def rotate_fma(d: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """``d @ r`` for d [..., P, 3] and r [..., 3, 3], rounded as XLA's CPU
+    dot rounds the render's and the back-projection's shapes (the rays
+    times a batch of rotations, and their einsum): every output column
+    accumulates its three products in a chain of fused multiply-adds."""
+    d64 = d.double()
+    r64 = r.double()[..., None, :, :]                 # [..., 1, 3, 3]
+    acc = (d64[..., 0, None] * r64[..., 0, :]).float()
+    acc = (d64[..., 1, None] * r64[..., 1, :] + acc.double()).float()
+    return (d64[..., 2, None] * r64[..., 2, :] + acc.double()).float()
+
+
 def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x / c`` for a constant c, as XLA compiles it: a product with the
     float32 reciprocal of c."""

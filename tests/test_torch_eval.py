@@ -5,7 +5,8 @@ beside the JAX package's.  The JAX Pallas kernels run in interpret mode.
 
 Pose history, the tri-class grid, rewards, dones, timeouts, collisions and
 coverage are exact; grayscale frames are held to 1e-4 (the antialiased
-resize, as in the mapping golden); eval metrics to 1e-6."""
+resize, as in the mapping golden); eval metrics to 1e-6, and with the
+accuracy scan exactly, but for the GT sampling floor (1e-6 relative)."""
 import dataclasses
 
 import jax
@@ -153,5 +154,33 @@ def test_evaluate_matches_jax_evaluate(policies):
     assert 1.0 <= got.mean_ep_length <= 6.0
     assert 0.0 < got.mean_init_coverage <= got.mean_final_coverage <= 1.0
     assert got.mean_reward <= got.mean_final_coverage + 1e-4
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        pt_evaluation.evaluate(penv, policy)
+    # the accuracy scan (the default) leaves every other result as it was
+    with_scan = pt_evaluation.evaluate(penv, policy)
+    for name in got._fields[:5] + got._fields[6:10]:
+        np.testing.assert_array_equal(getattr(with_scan, name),
+                                      getattr(got, name), err_msg=name)
+    assert np.isfinite(with_scan.mean_accuracy_cm)
+
+
+def test_evaluate_with_accuracy_matches_jax_evaluate(policies):
+    """compute_accuracy=True (the default) on 4 held-out scenes, 6-step
+    episodes that end early in collisions, the scan's sub-rays at stride 4:
+    every EvalResult field equals the JAX evaluate's, but the GT sampling
+    floor, whose mean JAX sums on its device in XLA's order (1e-6
+    relative)."""
+    model, variables, policy = policies
+    jenv, penv = _envs(6, 100, eval_env=True)
+    want = jax_evaluation.evaluate(jenv, model, variables, point_stride=4)
+    got = pt_evaluation.evaluate(penv, policy, point_stride=4)
+    for name in got._fields:
+        if name == "accuracy_floor_gt_sampling":
+            np.testing.assert_allclose(got.accuracy_floor_gt_sampling,
+                                       want.accuracy_floor_gt_sampling,
+                                       rtol=1e-6)
+        else:
+            np.testing.assert_array_equal(getattr(got, name),
+                                          getattr(want, name), err_msg=name)
+    assert got.mean_ep_length < 6, "some episodes end in a collision"
+    assert 0 < got.gt_unseen_frac < 1
+    assert got.mean_accuracy_cm == pytest.approx(
+        got.accuracy_scan2gt + got.accuracy_gt2scan)

@@ -53,6 +53,31 @@ def test_rotate_matches_xla_projection_dot(q):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("form", ["render", "backproject"])
+def test_rotate_fma_matches_xla_render_dots(form):
+    """The render's ``cam_rays @ r.T`` (render.py:99, one ray set under a
+    batch of rotations) and back-projection's einsum (backproject.py:35),
+    vmapped over envs as the eval's accuracy scan runs them: each output
+    column is a chain of fused multiply-adds, unlike the projection dot."""
+    r = np.random.default_rng(10).standard_normal((4, 3, 3)).astype(np.float32)
+    if form == "render":
+        d = _rng_f32(11, (2500, 3), -1.0, 1.0)
+        want = jax.jit(jax.vmap(lambda r: d @ r.T))(r)
+        d = np.broadcast_to(d, (4, 2500, 3))
+    else:
+        d = _rng_f32(12, (4, 2500, 3), -10.0, 10.0)
+        want = jax.jit(jax.vmap(
+            lambda r, x: jnp.einsum("ij,pj->pi", r, x)))(r, d)
+    got = fp32.rotate_fma(torch.from_numpy(np.ascontiguousarray(d)),
+                          torch.from_numpy(r).transpose(-1, -2))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the projection dot's rounding would not do
+    assert not np.array_equal(
+        fp32.rotate(torch.from_numpy(np.ascontiguousarray(d)),
+                    torch.from_numpy(r).transpose(-1, -2)).numpy(),
+        np.asarray(want))
+
+
 def test_cos_sin_correctly_rounded():
     x = _rng_f32(10, 2048, -7.0, 7.0)
     c, s = fp32.cos_sin(torch.from_numpy(x))

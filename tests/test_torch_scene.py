@@ -27,10 +27,17 @@ def test_generate_procedural_bit_equal(num_scenes, grid_res):
 
 
 def test_unported_datasets_raise():
-    for dataset in ("objects", "terrain", "/some/dir"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    """Dataset directories wait for Queue 1 item 10, terrain for item 11
+    (with env/terrain.py); the objects and convex families are ported
+    (tests/test_torch_chamfer.py holds them to the JAX generator)."""
+    for dataset, item in (("terrain", "11"), ("/some/dir", "10")):
+        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
             pt_scene.make_scenes(SceneConfig(num_scenes=1, dataset=dataset), 16,
-                                "cpu")
+                                 "cpu")
+    for dataset in ("objects", "convex"):
+        scenes = pt_scene.make_scenes(SceneConfig(num_scenes=1, dataset=dataset),
+                                      16, "cpu")
+        assert scenes.num_scenes == 1
 
 
 def test_voxel_centers_bit_equal():

@@ -18,7 +18,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      scatter and the carve gather;
    - the 128x128 flagship rollout (256 envs, Q = 11264): the same three;
    and the gather once more on an image with planted values (bf16 ties,
-   -0.0, a negative, empty pixels);
+   -0.0, a negative, empty pixels), and, without timing, at its edge
+   cases at both image sizes: q of 1, 3 and 4, a ragged q and index
+   arrays that are contiguous views off 16-byte alignment (the scalar
+   path);
 4. run the mapping golden on the card (tests/goldens/mapping_golden.npz,
    tests/test_goldens.py's tolerances) through the three kernels;
 5. the rollout at the flagship size: 256 procedural scenes, 256 envs,
@@ -45,9 +48,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    parameters and both BatchNorms' running stats moved, each kernel's
    exact launch count, and that a fresh Runner restored from the
    checkpoint holds the same parameters, optimizer state and step bit for
-   bit; prints each timed iteration's seconds by phase, env-steps/s,
-   update minibatches/s, peak memory, and the update's device-busy share,
-   top device ops and device activities per minibatch over 32 minibatches;
+   bit, and that a second Runner from the same seed on the same scenes
+   ends with the same parameters, BatchNorm stats, Adam state and logged
+   metrics (but time/*) bit for bit; prints each timed iteration's seconds
+   by phase, env-steps/s, update minibatches/s, peak memory, and the
+   update's device-busy share, top device ops and device activities per
+   minibatch over 32 minibatches;
 8. the post-training report on phase 7's run directory:
    gennbv_tpu_torch/tools/post_run.py's main with --eval_cam 400
    --point_stride 8 --no-artifacts, at full size (held-out houses, objects
@@ -91,6 +97,7 @@ import torch
 
 from gennbv_tpu_torch import config, spec
 from gennbv_tpu_torch.algo import evaluation, gae, ppo, rollout
+from gennbv_tpu_torch.algo.repro import first_difference, read_logged, snapshot
 from gennbv_tpu_torch.algo.runner import _METRIC_KEYS, Runner
 from gennbv_tpu_torch.env import ReconEnv, make_scenes
 from gennbv_tpu_torch.env import scene as scene_lib
@@ -368,10 +375,10 @@ def _step_inputs(scenes, cam: config.CameraConfig):
             (zbuf.reshape(n, cam.height, cam.width), cvi, cui))
 
 
-def planted_gather_case(q: int) -> dict:
-    """The gather at the rollout's image shape [256, 128, 128] and q random
-    in-range pixels, on an image with planted values: bf16 round-to-even
-    ties (1 + 2^-8, 1 + 3 * 2^-8), -0.0, a negative, and a block of empty
+def planted_gather_inputs(q: int):
+    """The rollout's image shape [256, 128, 128] and q random in-range
+    pixels, on an image with planted values: bf16 round-to-even ties
+    (1 + 2^-8, 1 + 3 * 2^-8), -0.0, a negative, and a block of empty
     pixels at depth_max."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     img = torch.rand(N_ENVS, HW, HW, device="cuda", generator=gen) * 30.0
@@ -382,8 +389,64 @@ def planted_gather_case(q: int) -> dict:
     # every env reads an empty pixel and each planted value
     vi[:, :5] = torch.tensor([0, 8, 8, 8, 8], dtype=torch.int32)
     ui[:, :5] = torch.tensor([0, 0, 1, 2, 3], dtype=torch.int32)
+    return img, vi, ui
+
+
+def planted_gather_case(q: int) -> dict:
     return gather_case(f"gather_image [{N_ENVS}x{HW}x{HW}] x [{N_ENVS}x{q}] "
-                       "(planted values)", img, vi, ui)
+                       "(planted values)", *planted_gather_inputs(q))
+
+
+# the gather's edge cases at both paths' image shapes: (envs, image side,
+# queries an env, offset of the index arrays in int32s); a ragged q and an
+# offset view take the scalar path, the rest the vector path
+GATHER_EDGES = [(n, hw, q, offset)
+                for n, hw in ((spec.EVAL_NUM_ENVS, EVAL_HW), (N_ENVS, HW))
+                for q, offset in ((1, 0), (3, 0), (4, 0), (G ** 3 + 1, 0),
+                                  (G ** 3, 1), (ROLLOUT_Q, 1), (ROLLOUT_Q, 0))]
+
+
+def gather_edge_inputs(n: int, hw: int, q: int, offset: int):
+    """Planted-style images [n, hw, hw] and random in-range indices, the
+    index arrays `offset` int32s into their buffers (contiguous views that
+    are not 16-byte aligned where offset % 4 != 0)."""
+    gen = torch.Generator(device="cuda").manual_seed(n * q + hw + offset)
+    img = torch.rand(n, hw, hw, device="cuda", generator=gen) * 30.0
+    img[:, 0, :4] = torch.tensor([1 + 2 ** -8, 1 + 3 * 2 ** -8, -0.0, 50.0])
+
+    def indices():
+        buf = torch.randint(0, hw, (n * q + offset,), device="cuda",
+                            dtype=torch.int32, generator=gen)
+        return buf[offset:].view(n, q)
+
+    vi, ui = indices(), indices()
+    vi[:, : min(q, 4)] = 0
+    ui[:, : min(q, 4)] = torch.arange(min(q, 4), dtype=torch.int32)
+    return img, vi, ui
+
+
+def gather_edge_case(n: int, hw: int, q: int, offset: int) -> str:
+    """The wrapper bit-equal to gather_image_ref on one edge case, with
+    one launch a call (counted, and one device launch under the
+    profiler); returns the path the geometry took."""
+    img, vi, ui = gather_edge_inputs(n, hw, q, offset)
+    geo = gather.launch_geometry(n, q, vi.data_ptr(), ui.data_ptr())
+    label = (f"gather_image [{n}x{hw}x{hw}] x [{n}x{q}], index offset "
+             f"{offset} ({geo.path} path)")
+    if geo.path != ("scalar" if q % gather.VECTOR or offset % 4 else "vector"):
+        raise AssertionError(f"{label}: the wrong path")
+    before = gather.gather_image.launches
+    got = gather.gather_image(img, vi, ui)
+    if gather.gather_image.launches != before + 1:
+        raise AssertionError(f"{label}: counted "
+                             f"{gather.gather_image.launches - before} launches")
+    _equal(label, (got,), (gather.gather_image_ref(img, vi, ui),))
+    per_call, _, names = profile_calls(lambda: gather.gather_image(img, vi, ui),
+                                       calls=3)
+    if per_call != 1 or not all("gather_image_kernel" in x for x in names):
+        raise AssertionError(f"{label}: {per_call} device launches a call "
+                             f"({sorted(names)})")
+    return geo.path
 
 
 def phase_kernels(eval_scenes, rollout_scenes) -> dict:
@@ -404,6 +467,11 @@ def phase_kernels(eval_scenes, rollout_scenes) -> dict:
         out["gather_image"][path] = gather_case(
             f"{path}: gather_image [{n}x{hw}x{hw}] x [{n}x{G ** 3}]", *gather_in)
     planted_gather_case(G ** 3)
+    paths = [gather_edge_case(*case) for case in GATHER_EDGES]
+    print(f"gather_image: bit-equal to the plain version with one device "
+          f"launch a call at {len(GATHER_EDGES)} edge cases (q 1, 3, 4, "
+          f"{G ** 3 + 1}, offset views; {paths.count('scalar')} on the scalar "
+          "path) at both image sizes")
     return out
 
 
@@ -472,11 +540,16 @@ def profile(label: str, fn, unprofiled_s: float | None = None) -> dict:
           "activities; top by device time:")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {us / 1e3:9.3f} ms {100 * us / busy:5.1f}%  {name[:90]}")
-    # the port's own kernels: csrc/*.cu keep them in anonymous namespaces
+    # the port's own kernels, demangled as "(anonymous namespace)::fn(args)"
+    # or, for a template, "void (anonymous namespace)::fn<...>(args)";
+    # some of PyTorch's kernels sit in anonymous namespaces too
+    ports = set(PORT_KERNEL_FUNCTIONS.values())
     ours: dict[str, list[float]] = {}
     for s, e, name in spans:
-        if name.startswith("(anonymous namespace)::"):
-            ours.setdefault(name.split("::")[1].split("(")[0], []).append(e - s)
+        fn = name.removeprefix("void ").removeprefix("(anonymous namespace)::")
+        fn = fn.split("(")[0].split("<")[0]
+        if fn in ports:
+            ours.setdefault(fn, []).append(e - s)
     for name, times in ours.items():
         print(f"  port kernel {name}: {len(times)} launches, "
               f"{sum(times) / 1e3:.3f} ms device time, "
@@ -698,6 +771,36 @@ def _profile_update(card: str, runner: Runner) -> dict:
     return res
 
 
+def reproduce(card: str, cfg: config.Config, scenes, eval_scenes,
+              first: dict) -> None:
+    """A second Runner from the same seed trains the same iterations on
+    the same scenes; raises unless its parameters, BatchNorm statistics,
+    Adam state and logged metrics (but time/*) equal the first run's
+    snapshot bit for bit."""
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_repro_")
+    try:
+        twin = Runner(cfg, scenes=scenes, eval_scenes=eval_scenes,
+                      log_dir=log_dir)
+        t0 = time.perf_counter()
+        twin.train(TRAIN_ITERS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        second = snapshot(twin, read_logged(log_dir))
+        twin.close()
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    diff = first_difference(first, second)
+    if diff:
+        raise AssertionError(f"train: a second Runner from seed "
+                             f"{cfg.runner.seed} differs first in {diff}")
+    iters = ", ".join(f"{rec['time/iter_seconds']:.3f} s" for rec in
+                      second["logged"])
+    print(f"train: a second Runner from seed {cfg.runner.seed} on the same "
+          f"scenes ends {TRAIN_ITERS} iterations with the same parameters, "
+          f"BatchNorm stats, Adam state and logged metrics (but time/*), bit "
+          f"for bit, in {secs:.3f} s (iterations {iters}) [{card}]")
+
+
 def phase_train(card: str, scenes, eval_scenes, log_dir: str) -> dict:
     """Runner.train at the flagship recipe's full size, into the run
     directory log_dir; returns each kernel's launches in that run."""
@@ -725,8 +828,7 @@ def phase_train(card: str, scenes, eval_scenes, log_dir: str) -> dict:
                   for name in KERNELS}
         if counts != expect:
             raise AssertionError(f"train launched {counts}, expected {expect}")
-        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
-            logged = [json.loads(line) for line in f]
+        logged = read_logged(log_dir)
         assert [rec["step"] for rec in logged] == list(range(1, TRAIN_ITERS + 1))
         total = cfg.ppo.n_epochs * cfg.ppo.total_iters * (
             cfg.ppo.n_steps * N_ENVS // cfg.ppo.batch_size)
@@ -790,6 +892,7 @@ def phase_train(card: str, scenes, eval_scenes, log_dir: str) -> dict:
         print(f"train: a fresh Runner restored from rl_model_{step}_steps holds "
               "the same parameters, BatchNorm stats, Adam state and step")
         del fresh
+        reproduce(card, cfg, scenes, eval_scenes, snapshot(runner, logged))
 
         _profile_update(card, runner)
     finally:

@@ -285,7 +285,7 @@ def update(
     if cfg.apply_mode not in ("select", "cond"):
         raise ValueError(f"ppo.apply_mode={cfg.apply_mode!r}: "
                          "expected 'select' or 'cond'")
-    fp32.full_fp32()
+    fp32.deterministic_fp32()
     if indices is None:
         indices = minibatch_indices(cfg, m, num_envs, generator)
     rows = flat_rows(indices.to(obs.device), m, num_envs)

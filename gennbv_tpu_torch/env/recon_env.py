@@ -75,7 +75,7 @@ class ReconEnv:
     device.  `step` does not modify its input state."""
 
     def __init__(self, cfg: EnvConfig, scenes: scene_lib.SceneSet):
-        fp32.full_fp32()
+        fp32.deterministic_fp32()
         self.cfg = cfg
         self.scenes = scenes
         self.device = scenes.surf_pts.device

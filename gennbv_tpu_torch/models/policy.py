@@ -35,7 +35,7 @@ class ActorCriticPolicy(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  device: torch.device | str = "cuda"):
         super().__init__()
-        fp32.full_fp32()
+        fp32.deterministic_fp32()
         self.encoder = HybridEncoder(cfg, device=device)
         self.action_net = nn.Linear(cfg.fused_dim, spec.NUM_LOGITS, device=device)
         self.value_net = nn.Linear(cfg.fused_dim, 1, device=device)

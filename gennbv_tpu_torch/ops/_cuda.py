@@ -18,6 +18,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -77,3 +79,16 @@ def load_library(name: str) -> ctypes.CDLL:
             if os.path.exists(tmp):
                 os.remove(tmp)
     return ctypes.CDLL(str(so))
+
+
+def launch(index: int, fn, *args) -> int:
+    """Calls the C launcher ``fn(*args, stream)`` with PyTorch's current
+    stream on CUDA device `index` (``tensor.get_device()``) and returns
+    its error code.  A kernel launches on the calling thread's current
+    device, so that device is made current for the call, and only where
+    it is not current already: entering ``torch.cuda.device`` costs more
+    host time than a small kernel's whole launch."""
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))

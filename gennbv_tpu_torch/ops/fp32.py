@@ -13,18 +13,42 @@ the port lands on the same pixels and voxels as the reference
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
 
-def full_fp32() -> None:
-    """Keep float32 matmuls and convolutions in full float32 on the card.
+# cuBLAS's workspace setting under which its results do not depend on
+# what other streams run (CUDA's cuBLAS documentation, "Results
+# reproducibility"); read once, at the process's first cuBLAS call
+CUBLAS_WORKSPACE_CONFIG = ":4096:8"
+
+
+def deterministic_fp32() -> None:
+    """Keep float32 matmuls and convolutions in full float32 on the card,
+    and make every run of the same work give the same bits.
 
     PyTorch's default lets cuDNN run float32 convolutions in TF32, which
     keeps about three decimal digits and would put the HybridEncoder's
-    Conv3d three digits off the reference.  Called by the env and policy
-    constructors, the port's entry points."""
+    Conv3d three digits off the reference.  Its default also lets cuDNN
+    pick convolution algorithms that sum with atomics, in an order that
+    changes from run to run: the second Conv3d's data gradient in the PPO
+    update's backward pass did, so two trainings from one seed differed
+    from the first minibatch's gradients of the first Conv3d and
+    BatchNorm on.  The deterministic algorithms are asked for instead,
+    chosen by cuDNN's heuristics rather than by timing (on an H100 they
+    cost 0 to ~7% of a training iteration; PERF.md, section 5).  cuBLAS gets
+    a fixed workspace per stream, where the environment does not already
+    set one, as a precaution: no cuBLAS result was seen to differ without
+    it.  It takes effect only before the process's first cuBLAS call, and
+    the port makes none before the policy is built.  Called by the env, policy and PPO constructors, the
+    port's entry points; no configuration key turns any of it off (the
+    JAX reference is deterministic by construction)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE_CONFIG)
 
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -139,12 +139,10 @@ def launch(vic, uic, z, ok, voxel_eps, height: int, width: int,
     visible = torch.empty(n, q, dtype=torch.bool, device=dev)
     if n == 0:
         return zbuf, visible
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _launcher()(vic.data_ptr(), uic.data_ptr(), z.data_ptr(),
-                          ok.data_ptr(), voxel_eps.data_ptr(), zbuf.data_ptr(),
-                          visible.data_ptr(), n, q, height, width, footprint,
-                          depth_max, ctas, stream)
+    err = _cuda.launch(z.get_device(), _launcher(), vic.data_ptr(),
+                       uic.data_ptr(), z.data_ptr(), ok.data_ptr(),
+                       voxel_eps.data_ptr(), zbuf.data_ptr(), visible.data_ptr(),
+                       n, q, height, width, footprint, depth_max, ctas)
     if err != 0:
         raise RuntimeError(f"zbuf_visible kernel launch failed: CUDA error {err}")
     zbuf_visible.launches += 1

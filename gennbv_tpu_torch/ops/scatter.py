@@ -80,10 +80,8 @@ def scatter_cells_any(idx: torch.Tensor, valid: torch.Tensor,
     grid = torch.empty(n, g, g, g, dtype=torch.float32, device=idx.device)
     if n == 0:
         return grid
-    with torch.cuda.device(idx.device):
-        stream = torch.cuda.current_stream(idx.device).cuda_stream
-        err = _launcher()(idx.data_ptr(), valid.data_ptr(), grid.data_ptr(),
-                          n, p, g, smem, stream)
+    err = _cuda.launch(idx.get_device(), _launcher(), idx.data_ptr(),
+                       valid.data_ptr(), grid.data_ptr(), n, p, g, smem)
     if err != 0:
         raise RuntimeError(f"scatter_cells_any kernel launch failed: CUDA "
                            f"error {err}")

@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card: each kernel against its plain
 version, the mapping golden, a rollout and an eval with the kernels in
-use, a PPO update against the same update on the CPU, and the train CLI.
+use, a PPO update against the same update on the CPU, the train CLI, and
+two trainings from one seed.
 They skip on a machine without one.  This file imports no jax, so it
 also runs where jax is missing; tests/conftest.py imports jax, so there run
 it without the conftest:
@@ -26,6 +27,20 @@ def test_gather_kernel_equals_plain_at_rollout_shapes(cuda, q):
     negative, empty pixels), at the surface capacity and the G^3 carve."""
     import chip_smoke
     assert chip_smoke.planted_gather_case(q)["max_abs_err"] == 0.0
+
+
+@pytest.mark.parametrize("hw", [400, 128])
+@pytest.mark.parametrize("q,offset", [(1, 0), (3, 0), (4, 0), (8001, 0),
+                                      (8000, 1), (11264, 1), (11264, 0)])
+def test_gather_kernel_edge_cases(cuda, hw, q, offset):
+    """At the eval's [50, 400, 400] and the rollout's [256, 128, 128]
+    images: tiny and ragged q, and index arrays that are contiguous views
+    off 16-byte alignment (the scalar path), bit-equal to the plain
+    version with one launch a call."""
+    import chip_smoke
+    n = 50 if hw == 400 else 256
+    path = chip_smoke.gather_edge_case(n, hw, q, offset)
+    assert path == ("scalar" if q % 4 or offset else "vector")
 
 
 @pytest.mark.parametrize("g,q", [(4, 40), (20, 700), (20, 5000)])
@@ -323,3 +338,35 @@ def test_train_cli_on_card(cuda, tmp_path, capsys):
     for rec in logged:
         assert all(np.isfinite(v) for v in rec.values())
         assert rec["train/n_minibatches"] >= 1
+
+
+def test_training_reproduces_itself(cuda, tmp_path):
+    """Two Runners from one seed, 2 iterations each at 8 envs with an eval
+    and a checkpoint: the same parameters, BatchNorm statistics, Adam
+    state and logged metrics (but time/*), bit for bit."""
+    from gennbv_tpu_torch import config
+    from gennbv_tpu_torch.algo.runner import Runner
+    from gennbv_tpu_torch.env import make_scenes
+    from gennbv_tpu_torch.algo.repro import (first_difference, read_logged,
+                                             snapshot)
+
+    cfg = config.apply_overrides(config.Config(), (
+        "env.num_envs=8", "env.camera.height=32", "env.camera.width=32",
+        "env.renderer.resolution=16", "env.scene.num_scenes=8",
+        "ppo.n_steps=8", "ppo.batch_size=16", "runner.eval_freq=2",
+        "runner.save_freq=2"))
+    scenes = make_scenes(cfg.env.scene, 16)
+    eval_scenes = make_scenes(config.SceneConfig(num_scenes=4, seed=100), 16)
+    snaps = []
+    for run in range(2):
+        log_dir = str(tmp_path / f"run{run}")
+        runner = Runner(cfg, scenes=scenes, eval_scenes=eval_scenes,
+                        log_dir=log_dir)
+        runner.train(2)
+        torch.cuda.synchronize()
+        snaps.append(snapshot(runner, read_logged(log_dir)))
+        runner.close()
+    assert [rec["step"] for rec in snaps[0]["logged"]] == [1, 2]
+    assert "eval/final_coverage" in snaps[0]["logged"][1]
+    assert snaps[0]["count"] > 0
+    assert first_difference(*snaps) is None

@@ -83,3 +83,29 @@ def test_wrapper_rejects_bad_input():
     with pytest.raises(ValueError, match="no kernel"):
         gather.gather_image(img.to("meta"), vi.to("meta"), vi.to("meta"))
 
+
+
+@pytest.mark.parametrize("q,offset", [(531, 0), (8001, 0), (528, 1), (8000, 3)])
+def test_ragged_q_and_offset_views_match_pallas(q, offset):
+    """A q that is not a multiple of the kernel's vector width, and index
+    arrays that are contiguous views off 16-byte alignment (``buf[k:]``):
+    the wrapper's geometry takes the scalar path for both, and its result
+    equals the vmapped Pallas kernel's (interpret mode) bit for bit."""
+    rng = np.random.default_rng(q + offset)
+    n, h, w = 2, 40, 56
+    img = _image(rng, n, h, w)
+    vi, ui = _indices(rng, n, q, h, w)
+    want = np.asarray(jax.vmap(pallas_gather.gather_image)(
+        *map(jnp.asarray, (img, vi, ui))))
+
+    def view(a):
+        buf = torch.zeros(a.size + offset, dtype=torch.int32)
+        buf[offset:] = torch.from_numpy(a.reshape(-1))
+        return buf[offset:].view(n, q)
+
+    tvi, tui = view(vi), view(ui)
+    assert tvi.is_contiguous() and (tvi.data_ptr() % 16 != 0) == (offset % 4 != 0)
+    geo = gather.launch_geometry(n, q, tvi.data_ptr(), tui.data_ptr())
+    assert geo.path == "scalar"
+    got = gather.gather_image(torch.from_numpy(img), tvi, tui)
+    np.testing.assert_array_equal(got.numpy(), want)

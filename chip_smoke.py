@@ -17,6 +17,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      capacity Q, 20^3 grid): the fused splat z-buffer + visibility, the hit
      scatter and the carve gather;
    - the 128x128 flagship rollout (256 envs, Q = 11264): the same three;
+   - the 128x128 DDA step of phase 9: the hit scatter of every pixel
+     ([256, 16384] points) and the gather of the foreground mask (a {0,1}
+     image, 256 x 128^2 x 8000);
+   - phase 10's converted scenes: the three at the training set's Q
+     (256 envs, 128x128) and at Q - 3 (the gather's scalar path), and at
+     the held-out set's Q (50 envs, 400x400);
    and the gather once more on an image with planted values (bf16 ties,
    -0.0, a negative, empty pixels), and, without timing, at its edge
    cases at both image sizes: q of 1, 3 and 4, a ragged q and index
@@ -70,7 +76,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    and of batched_accuracy, and peak memory.  Then train/play.py's main
    with --ply, --obj and --export on the card: the files are non-empty and
    the loaded torch.export program's actions equal the eager policy's.
-The last two lines of stdout are the kernel summary with the card's name
+9. the DDA, replay and callback env paths at full width: phase 5's 256
+   scenes, 256 envs, 128x128, R=64, the full-width HybridEncoder from a
+   seeded generator, reset + 16 collected steps with renderer.mode=dda,
+   once with carve_mode=ztest and once with bresenham.  Checks each
+   kernel's exact launches a step (the hit scatter once, the gather twice
+   with ztest and never with bresenham, the splat never), holds 2 envs'
+   step outputs and states to the port on the CPU over the same steps,
+   records a replay bank at the visited poses with the card's DDA and
+   requires a replay env to equal the dda env bit for bit, and a
+   callback env over the same frames to agree too; prints env-steps/s,
+   the DDA's and the Bresenham carve's device ms a step, device
+   activities a step and peak memory;
+10. the dataset pipeline at full width: 256 procedural houses of seed 0
+   and 50 held-out ones of seed 100, meshed into OBJs in a temporary
+   directory by the native mesher and converted by the port's
+   convert_dataset (the voxelizer built into gennbv_tpu_torch/_build/);
+   then 2 iterations of the flagship recipe on the training directory
+   through train_eval_gennbv.main --eval_dataset <held-out directory>
+   with an eval under runner.eval_camera=400, and post_run.main
+   --eval_cam 400 --only held_out_houses --no-artifacts, which must take
+   its held-out family from the run's config.json.  Checks each kernel's
+   exact launch count and finite metrics; prints the convert's seconds,
+   Q, iteration seconds, env-steps/s and peak memory.
+The meshes are converted before phase 3, which times the kernels at
+their Q.  The last two lines of stdout are the kernel summary with the card's name
 and power limit before them, then the result line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
@@ -101,12 +131,17 @@ from gennbv_tpu_torch.algo.repro import first_difference, read_logged, snapshot
 from gennbv_tpu_torch.algo.runner import _METRIC_KEYS, Runner
 from gennbv_tpu_torch.env import ReconEnv, make_scenes
 from gennbv_tpu_torch.env import scene as scene_lib
+from gennbv_tpu_torch.env.depth_sources import (CallbackDepthSource,
+                                                ReplayBank,
+                                                ReplayDepthSource,
+                                                record_replay_bank)
 from gennbv_tpu_torch.models.policy import ActorCriticPolicy
 from gennbv_tpu_torch.models import distributions
-from gennbv_tpu_torch.ops import (_cuda, camera, carve, fp32, fused_splat,
-                                  gather, render, scatter, splat, voxel)
-from gennbv_tpu_torch.tools import post_run
-from gennbv_tpu_torch.train import play
+from gennbv_tpu_torch.ops import (_cuda, backproject, camera, carve, fp32,
+                                  fused_splat, gather, render, scatter, splat,
+                                  voxel)
+from gennbv_tpu_torch.tools import convert_dataset, post_run
+from gennbv_tpu_torch.train import play, train_eval_gennbv
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "mapping_golden.npz")
@@ -120,6 +155,10 @@ N_ENVS, HW, RES, N_STEPS, GAMMA = 256, 128, 64, 128, 0.99
 ROLLOUT_Q = 11264
 EVAL_HW, EVAL_SEED = 400, 100
 POINT_STRIDE = 8                         # the accuracy scan's pixel stride
+DDA_STEPS = 16                           # phase 9's collected steps a run
+CPU_ENVS = 2                             # envs held to the CPU in phase 9
+N_MESHES = 256                           # phase 10's training meshes
+DATASET_ITERS = 2                        # phase 10's training iterations
 G = spec.GRID_SIZE                       # the 20^3 grid; the carve gathers G^3
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s,
 # and float32 operations/s outside the tensor cores, the rate the bounds
@@ -345,10 +384,9 @@ def splat_case(label, vic, uic, z, ok, veps, h, w, depth_max) -> dict:
         19 * nvalid + 16 * n * h * w)
 
 
-def _step_inputs(scenes, cam: config.CameraConfig):
-    """What an env step hands the three kernels: every scene seen from a
-    pose of the discrete action grid drawn from a seeded numpy
-    generator."""
+def _step_poses(scenes, cam: config.CameraConfig):
+    """Every scene seen from a pose of the discrete action grid drawn from
+    a seeded numpy generator: (poses, r_c2w, t_c2w, intrinsics)."""
     n = scenes.num_scenes
     dev = scenes.surf_pts.device
     rng = np.random.default_rng(0)
@@ -359,6 +397,13 @@ def _step_inputs(scenes, cam: config.CameraConfig):
     r, t = camera.pose_to_c2w(poses, cam.z_offset)
     k = torch.as_tensor(camera.intrinsics(cam.height, cam.width,
                                           cam.horizontal_fov_deg), device=dev)
+    return poses, r, t, k
+
+
+def _step_inputs(scenes, cam: config.CameraConfig):
+    """What a splat env step hands the three kernels (_step_poses)."""
+    n = scenes.num_scenes
+    _, r, t, k = _step_poses(scenes, cam)
     vic, uic, z, ok = splat.project_px(scenes.surf_pts, scenes.surf_mask, k,
                                        r, t, cam.height, cam.width)
     z = z.contiguous()
@@ -373,6 +418,29 @@ def _step_inputs(scenes, cam: config.CameraConfig):
                                               cam.width)
     return ((vic, uic, z, ok, veps), (idx.contiguous(), in_bounds.contiguous()),
             (zbuf.reshape(n, cam.height, cam.width), cvi, cui))
+
+
+def _dda_step_inputs(scenes, cam: config.CameraConfig):
+    """What a DDA env step (renderer.mode=dda, carve_mode=ztest) hands the
+    hit scatter and the foreground gather (_step_poses): the cells of all
+    H*W back-projected pixels, and the ray march's hit mask as a {0,1}
+    float image with the carve's G^3 voxel pixels."""
+    n = scenes.num_scenes
+    _, r, t, k = _step_poses(scenes, cam)
+    rays = torch.as_tensor(camera.camera_rays(cam.height, cam.width,
+                                              cam.horizontal_fov_deg),
+                           device=r.device)
+    depth, fg = render.render_depth(scenes.render_occ, scenes.box_lo,
+                                    scenes.box_hi, rays, r, t, scenes.grid_res,
+                                    3 * scenes.grid_res, cam.depth_max)
+    pts, valid = backproject.backproject(depth, fg, rays, r, t)
+    idx, in_bounds = voxel.points_to_voxel_idx(pts, valid, scenes.range_gt,
+                                               scenes.voxel_size)
+    centers = scene_lib.voxel_centers(scenes.range_gt, scenes.voxel_size, G)
+    cvi, cui, _, _ = carve.project_centers_px(centers, k, r, t, cam.height,
+                                              cam.width)
+    return ((idx.contiguous(), in_bounds.contiguous()),
+            (fg.float().reshape(n, cam.height, cam.width), cvi, cui))
 
 
 def planted_gather_inputs(q: int):
@@ -449,11 +517,44 @@ def gather_edge_case(n: int, hw: int, q: int, offset: int) -> str:
     return geo.path
 
 
-def phase_kernels(eval_scenes, rollout_scenes) -> dict:
+def _ragged(inputs, q: int):
+    """The first q points of [N, Q, ...] step inputs (a [N] slack kept)."""
+    return tuple(x if x.dim() == 1 else x[:, :q].contiguous() for x in inputs)
+
+
+def phase_kernels(eval_scenes, rollout_scenes, dataset_scenes) -> dict:
     """Each kernel against its plain version on the inputs of a step of
-    the eval and of the rollout; returns {kernel: {path: timings}}.  The
-    gather is also held bit-equal on an image with planted values."""
+    the eval, of the rollout, of the DDA step and of the converted
+    scenes (dataset_scenes: {label: (scenes, image side)}); returns
+    {kernel: {path: timings}}.  The gather is also held bit-equal on an
+    image with planted values."""
     out = {name: {} for name in KERNELS}
+    cam = config.CameraConfig(height=HW, width=HW)
+    n = rollout_scenes.num_scenes
+    scatter_in, fg_in = _dda_step_inputs(rollout_scenes, cam)
+    out["scatter_cells_any"]["dda"] = scatter_case(
+        f"dda: scatter_cells_any [{n}x{HW * HW}] -> [{n}x{G}^3]", *scatter_in)
+    out["gather_image"]["dda_fg"] = gather_case(
+        f"dda: gather_image of the fg mask [{n}x{HW}x{HW}] x [{n}x{G ** 3}]",
+        *fg_in)
+    for path, (scenes, hw) in dataset_scenes.items():
+        cam = config.CameraConfig(height=hw, width=hw)
+        n, q = scenes.surf_mask.shape
+        splat_in, scatter_in, (zbuf, _, _) = _step_inputs(scenes, cam)
+        for label, qq in ((path, q), (f"{path}_ragged", q - 3)):
+            if qq != q and hw != HW:
+                continue           # the ragged Q on the training set only
+            sp = _ragged(splat_in, qq)
+            sc = _ragged(scatter_in, qq)
+            out["zbuf_visible"][label] = splat_case(
+                f"{label}: zbuf_visible [{n}x{qq}] -> [{n}x{hw}x{hw}]", *sp,
+                hw, hw, cam.depth_max)
+            out["scatter_cells_any"][label] = scatter_case(
+                f"{label}: scatter_cells_any [{n}x{qq}] -> [{n}x{G}^3]", *sc)
+            # the visibility gather's shape: the points' own pixels
+            out["gather_image"][label] = gather_case(
+                f"{label}: gather_image [{n}x{hw}x{hw}] x [{n}x{qq}]", zbuf,
+                sp[0], sp[1])
     for path, scenes, hw in (("eval", eval_scenes, EVAL_HW),
                              ("rollout", rollout_scenes, HW)):
         cam = config.CameraConfig(height=hw, width=hw)
@@ -1057,8 +1158,15 @@ def phase_report(card: str, run_dir: str) -> dict:
         raise AssertionError(f"report launched {counts}, expected {expect}")
     with open(REFERENCE_REPORT) as f:
         reference = json.load(f)
-    if set(report) != {"checkpoint", *(tag for tag, _, _ in fams)}:
+    # the JAX report's keys, and what the held-out family ran on
+    if set(report) != {"checkpoint", "held_out_dataset", "eval_cam",
+                       *(tag for tag, _, _ in fams)}:
         raise AssertionError(f"report: keys {sorted(report)}")
+    if (report["held_out_dataset"], report["eval_cam"]) != (fams[0][1],
+                                                            EVAL_HW):
+        raise AssertionError(f"report: held-out family on "
+                             f"{report['held_out_dataset']!r} at "
+                             f"{report['eval_cam']}")
     for tag, _, _ in fams:
         if set(report[tag]) != set(reference[tag]):
             raise AssertionError(f"report: {tag} has keys {sorted(report[tag])}, "
@@ -1129,6 +1237,350 @@ def phase_report(card: str, run_dir: str) -> dict:
     return counts, pieces
 
 
+def dda_config(carve_mode: str, mode: str = "dda") -> config.EnvConfig:
+    """The flagship rollout's env (256 envs, 128x128, R=64) on the ray
+    march or an external depth feed, with the given carve."""
+    cfg = flagship_config()
+    return dataclasses.replace(cfg, carve_mode=carve_mode,
+                               renderer=dataclasses.replace(cfg.renderer,
+                                                            mode=mode))
+
+
+def dda_expect(carve_mode: str) -> dict:
+    """Each kernel's launches a step of the DDA, replay and callback paths:
+    the hit scatter once; the gather of the depth and of the hit mask with
+    the z-test carve, none with Bresenham's; no splat."""
+    return {"gather_image": 2 if carve_mode == "ztest" else 0,
+            "scatter_cells_any": 1, "zbuf_visible": 0}
+
+
+def _step_counted(env, state, actions, expect: dict, label: str):
+    before = launches()
+    state, out = env.step(state, actions)
+    got = {k: v - before[k] for k, v in launches().items()}
+    if got != expect:
+        raise AssertionError(f"{label}: a step launched {got}, expected {expect}")
+    return state, out
+
+
+def _same_step(label, a, b, gray_tol: float = 0.0) -> float:
+    """Raises unless two (state, StepOutput) pairs are equal: every field
+    bit for bit, the grayscale frames (rgb_buf, the obs tail) within
+    gray_tol.  Returns the largest grayscale difference."""
+    (sa, oa), (sb, ob) = a, b
+    n_state = 600 + G ** 3
+    gray = 0.0
+    for name, x, y in [*((f"out.{f}", getattr(oa, f), getattr(ob, f))
+                         for f in oa._fields),
+                       *((f"state.{f}", getattr(sa, f), getattr(sb, f))
+                         for f in sa._fields)]:
+        x, y = x.cpu(), y.cpu()
+        if name == "out.obs":
+            gray = max(gray, float((x[:, n_state:] - y[:, n_state:]).abs().max()))
+            x, y = x[:, :n_state], y[:, :n_state]
+        elif name == "state.rgb_buf":
+            gray = max(gray, float((x - y).abs().max()))
+            continue
+        if not torch.equal(x, y):
+            raise AssertionError(f"{label}: {name} differs")
+    if gray > gray_tol:
+        raise AssertionError(f"{label}: grayscale frames differ by {gray}")
+    return gray
+
+
+def _first_envs(x: torch.Tensor, k: int = CPU_ENVS) -> torch.Tensor:
+    return x[:k].clone()
+
+
+def drive_dda(card: str, scenes, policy, carve_mode: str):
+    """Reset + DDA_STEPS steps of the 256-env DDA env with actions from
+    the policy, timed; returns (actions [T, N, 6], poses [N, T + 1, 6] of
+    each env's views, the first CPU_ENVS envs' (state, out) after reset
+    and each step, the env)."""
+    cfg = dda_config(carve_mode)
+    env = ReconEnv(cfg, scenes)
+    expect = dda_expect(carve_mode)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    env.reset(N_ENVS)                                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, out = env.reset(N_ENVS)
+    counts = launches()
+    if counts != expect:
+        raise AssertionError(f"dda {carve_mode}: reset launched {counts}")
+    keep = [tuple(type(x)(*map(_first_envs, x)) for x in (state, out))]
+    # the obs opens with the pose history; its last pose is the step's view
+    end = cfg.pose_buf_len * spec.ACTION_DIM
+    poses, acts = [out.obs[:, end - spec.ACTION_DIM:end]], []
+    with torch.no_grad():
+        for t in range(DDA_STEPS):
+            a, _, _ = policy.act(out.obs, gen)
+            state, out = _step_counted(env, state, a, expect,
+                                       f"dda {carve_mode} step {t}")
+            acts.append(a)
+            poses.append(out.obs[:, end - spec.ACTION_DIM:end])
+            keep.append(tuple(type(x)(*map(_first_envs, x))
+                              for x in (state, out)))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for name, x in out._asdict().items():
+        if x.is_floating_point() and not torch.isfinite(x).all():
+            raise AssertionError(f"dda {carve_mode}: non-finite {name}")
+    assert ((out.coverage >= 0) & (out.coverage <= 1)).all()
+    assert (out.coverage > 0).any(), "the cameras see the houses"
+    print(f"dda {carve_mode}: reset + {DDA_STEPS} steps x {N_ENVS} envs at "
+          f"{HW}x{HW}, R={RES} in {secs:.3f} s = "
+          f"{N_ENVS * (1 + DDA_STEPS) / secs:.1f} env-steps/s [{card}]; mean "
+          f"coverage at the last step {float(out.coverage.mean()):.4f}; "
+          f"launches a step {expect}; peak memory {peak / 2 ** 30:.2f} GiB")
+    return (torch.stack(acts), torch.stack(poses, 1), keep, env,
+            {k: v * (1 + DDA_STEPS) for k, v in expect.items()})
+
+
+def _cpu_scenes(scenes, k: int = CPU_ENVS):
+    """The first k scenes of a SceneSet, on the CPU."""
+    return scene_lib.SceneSet(
+        *(getattr(scenes, f)[:k].cpu() for f in scene_lib.SceneSet._fields[:-2]),
+        grid_res=scenes.grid_res, grid_size=scenes.grid_size)
+
+
+def check_dda_on_cpu(carve_mode: str, scenes, actions, keep) -> float:
+    """The first CPU_ENVS envs through the port on the CPU with the card
+    run's actions: every step's outputs and states equal the card's."""
+    env = ReconEnv(dataclasses.replace(dda_config(carve_mode),
+                                       num_envs=CPU_ENVS), _cpu_scenes(scenes))
+    state, out = env.reset(CPU_ENVS)
+    gray = _same_step(f"dda {carve_mode} reset, card vs CPU", keep[0],
+                      (state, out), 1e-4)
+    for t in range(DDA_STEPS):
+        state, out = env.step(state, actions[t, :CPU_ENVS].cpu())
+        gray = max(gray, _same_step(f"dda {carve_mode} step {t}, card vs CPU",
+                                    keep[t + 1], (state, out), 1e-4))
+    return gray
+
+
+def _profile_dda_pieces(card: str, env, actions) -> dict:
+    """Device time and activities of one DDA step and of its ray march and
+    Bresenham carve alone (torch.profiler), on the last step's inputs."""
+    sc = env.scenes
+    state, out = env.reset(N_ENVS)
+    a = actions[-1]
+    step = profile(f"dda {env.cfg.carve_mode}: one env step",
+                   lambda: env.step(state, a))
+    poses = fp32.fma(a.float(), env.action_unit, env.pose_low)
+    r, t = camera.pose_to_c2w(poses, env.cfg.camera.z_offset)
+    sid = state.scene_id
+    march = profile("dda: the ray march of one step", lambda: render.render_depth(
+        sc.render_occ[sid], sc.box_lo[sid], sc.box_hi[sid], env.cam_rays, r, t,
+        sc.grid_res, 3 * sc.grid_res, env.cfg.camera.depth_max))
+    res = {"step": step, "march": march}
+    if env.cfg.carve_mode == "bresenham":
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        hit = (torch.rand(state.tri_grid.shape, device="cuda", generator=gen)
+               < 0.05).float()
+        cam_voxel = voxel.pose_to_voxel_idx(poses[:, :3], sc.range_gt[sid],
+                                            sc.voxel_size[sid])
+        res["carve"] = profile(
+            "dda: the Bresenham carve of one step (5% of cells hit)",
+            lambda: carve.carve_bresenham(hit, cam_voxel, G))
+    return res
+
+
+def phase_dda(card: str, scenes) -> dict:
+    """renderer.mode=dda with both carves, then replay and callback, at
+    full width; returns each kernel's launches by run."""
+    policy = ActorCriticPolicy(config.ModelConfig(),
+                               torch.Generator(device="cuda").manual_seed(1))
+    policy.eval()
+    counts, runs = {}, {}
+    for carve_mode in ("ztest", "bresenham"):
+        actions, poses, keep, env, counts[f"dda_{carve_mode}"] = drive_dda(
+            card, scenes, policy, carve_mode)
+        t0 = time.perf_counter()
+        gray = check_dda_on_cpu(carve_mode, scenes, actions, keep)
+        print(f"dda {carve_mode}: envs 0-{CPU_ENVS - 1} equal the port on the "
+              f"CPU over reset + {DDA_STEPS} steps, every output and state "
+              f"field bit for bit but the grayscale frames "
+              f"({'also bit for bit' if gray == 0 else f'max diff {gray:.3g}'}) "
+              f"({time.perf_counter() - t0:.1f} s)")
+        pieces = _profile_dda_pieces(card, env, actions)
+        runs[carve_mode] = (actions, poses, env)
+        print(f"dda {carve_mode}: a step {pieces['step']['busy_ms']:.3f} ms of "
+              f"device time in {pieces['step']['activities']} activities; the "
+              f"ray march {pieces['march']['busy_ms']:.3f} ms in "
+              f"{pieces['march']['activities']}"
+              + (f"; the Bresenham carve {pieces['carve']['busy_ms']:.3f} ms in "
+                 f"{pieces['carve']['activities']}" if "carve" in pieces else "")
+              + f" [{card}]")
+
+    # replay and callback over the frames of the ztest run's views
+    actions, poses, dda_env = runs["ztest"]
+    t0 = time.perf_counter()
+    bank = record_replay_bank(scenes, dda_env.cfg.camera, poses)
+    replay = ReplayDepthSource(bank)
+    thr = dda_env.cfg.camera.depth_max * (1.0 - 1e-4)
+    far_hits = int((bank.fg & (bank.frames >= thr)).sum())
+
+    def host_render(sids, p):
+        d, _ = replay.render_batch(torch.from_numpy(sids).cuda(),
+                                   torch.from_numpy(p).cuda())
+        return d.cpu().numpy()
+
+    envs = {
+        "dda": dda_env,
+        "replay": ReconEnv(dda_config("ztest", "replay"), scenes, replay),
+        "callback": ReconEnv(dda_config("ztest", "callback"), scenes,
+                             CallbackDepthSource(host_render, HW, HW,
+                                                 dda_env.cfg.camera.depth_max)),
+    }
+    # the callback derives foreground from the depth: where the ray march
+    # hit at or beyond depth_max (1 - 1e-4) it differs from the hit mask,
+    # so it is held to a replay bank whose mask is derived alike
+    if far_hits:
+        envs["derived"] = ReconEnv(
+            dda_config("ztest", "replay"), scenes, ReplayDepthSource(
+                ReplayBank(bank.poses, bank.frames, bank.frames < thr)))
+    expect = dda_expect("ztest")
+    reset_launches()
+    trace = {name: env.reset(N_ENVS) for name, env in envs.items()}
+    for t in range(DDA_STEPS + 1):
+        _same_step(f"replay vs dda, step {t}", trace["replay"], trace["dda"])
+        _same_step(f"callback, step {t}", trace["callback"],
+                   trace["derived" if far_hits else "dda"])
+        if t == DDA_STEPS:
+            break
+        trace = {name: _step_counted(env, trace[name][0], actions[t], expect,
+                                     f"{name} step {t}")
+                 for name, env in envs.items()}
+    per_env = {k: v * (1 + DDA_STEPS) for k, v in expect.items()}
+    if launches() != {k: v * len(envs) for k, v in per_env.items()}:
+        raise AssertionError(f"replay/callback run launched {launches()}")
+    counts["replay"] = counts["callback"] = per_env
+    print(f"replay: a bank of {poses.shape[1]} views of each of "
+          f"{scenes.num_scenes} scenes recorded by the card's DDA; the replay "
+          f"env equals the dda env bit for bit over reset + {DDA_STEPS} steps, "
+          f"and the callback env equals "
+          f"{'a replay env with the mask derived from the depth' if far_hits else 'the dda env'} "
+          f"({far_hits} hits at or beyond depth_max (1 - 1e-4)) "
+          f"({time.perf_counter() - t0:.1f} s) [{card}]")
+    return counts
+
+
+def phase_convert(root: str) -> dict:
+    """N_MESHES procedural houses of seed 0 and the eval's 50 of its seed,
+    meshed into OBJs under root by the native mesher and converted by the
+    port's convert_dataset; returns {"train"/"held_out": directory}."""
+    dirs, t_mesh, t_conv = {}, 0.0, 0.0
+    for tag, n, seed in (("train", N_MESHES, 0),
+                         ("held_out", spec.EVAL_NUM_ENVS, EVAL_SEED)):
+        t0 = time.perf_counter()
+        meshes = os.path.join(root, f"meshes_{tag}")
+        convert_dataset.write_procedural_meshes(meshes, n, seed, RES)
+        t1 = time.perf_counter()
+        dirs[tag] = os.path.join(root, tag)
+        convert_dataset.convert(meshes, dirs[tag], RES, G, 1.0, verbose=False)
+        t_mesh += t1 - t0
+        t_conv += time.perf_counter() - t1
+    print(f"dataset: {N_MESHES} + {spec.EVAL_NUM_ENVS} houses meshed into "
+          f"OBJs in {t_mesh:.1f} s and converted at R={RES} in {t_conv:.1f} s "
+          f"({os.cpu_count()} CPUs)")
+    return dirs
+
+
+def phase_dataset(card: str, dirs: dict, root: str) -> dict:
+    """Training on the converted scenes with the held-out directory as the
+    eval dataset, then post_run's held-out family; returns each kernel's
+    launches by run."""
+    with open(FLAGSHIP) as f:
+        raw = json.load(f)
+
+    def leaves(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}.")
+            elif f"{prefix}{k}" not in ("runner.log_dir",
+                                        "runner.experiment_name"):
+                yield f"{prefix}{k}={v}"
+
+    log_dir = os.path.join(root, "runs")
+    argv = ["--device", "cuda", "--log_dir", log_dir, "--exp_name", "dataset",
+            "--eval_dataset", dirs["held_out"]]
+    for leaf in (*leaves(raw, ""), f"env.scene.dataset={dirs['train']}",
+                 f"ppo.total_iters={DATASET_ITERS}",
+                 f"runner.eval_freq={DATASET_ITERS}",
+                 f"runner.save_freq={DATASET_ITERS}"):
+        argv += ["--set", leaf]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    train_eval_gennbv.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    train_counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    (run,) = os.listdir(log_dir)
+    run_dir = os.path.join(log_dir, run)
+    with open(os.path.join(run_dir, "config.json")) as f:
+        recorded = json.load(f)
+    if recorded.get("eval_dataset") != os.path.abspath(dirs["held_out"]):
+        raise AssertionError(f"config.json records eval_dataset "
+                             f"{recorded.get('eval_dataset')!r}")
+    # setup reset, 128 steps an iteration, one eval (reset + 30 steps)
+    n_steps = recorded["ppo"]["n_steps"]
+    expect = {name: 1 + DATASET_ITERS * n_steps + 1 + spec.MAX_EPISODE_LENGTH_EVAL
+              for name in KERNELS}
+    if train_counts != expect:
+        raise AssertionError(f"dataset training launched {train_counts}, "
+                             f"expected {expect}")
+    logged = read_logged(run_dir)
+    for rec in logged:
+        for k in _METRIC_KEYS:
+            if not math.isfinite(rec[k]):
+                raise AssertionError(f"dataset training: non-finite {k}")
+    assert math.isfinite(logged[-1]["eval/final_coverage"])
+    train_q = scene_lib.load_npz(os.path.join(dirs["train"], "scenes.npz"),
+                                 "cpu").surf_pts.shape[1]
+    for rec in logged:
+        print(f"dataset: iteration {rec['step']}"
+              f"{' (warm-up)' if rec['step'] == 1 else ''}: "
+              f"{rec['time/iter_seconds']:.3f} s = rollout "
+              f"{rec['time/rollout']:.3f} + update {rec['time/update']:.3f} s; "
+              f"{rec['time/fps']:.1f} env-steps/s [{card}]")
+    print(f"dataset: train_eval_gennbv on {N_MESHES} converted scenes "
+          f"(Q={train_q}), eval on {dirs['held_out']} under {EVAL_HW}x{EVAL_HW} "
+          f"(final coverage {logged[-1]['eval/final_coverage']:.4f}) in "
+          f"{secs:.3f} s; peak memory {peak / 2 ** 30:.2f} GiB [{card}]")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    report = post_run.main([run_dir, "--eval_cam", str(EVAL_HW), "--only",
+                            "held_out_houses", "--no-artifacts"])
+    t_report = time.perf_counter() - t0
+    report_counts = launches()
+    expect = {name: 1 + spec.MAX_EPISODE_LENGTH_EVAL for name in KERNELS}
+    if report_counts != expect:
+        raise AssertionError(f"dataset post_run launched {report_counts}, "
+                             f"expected {expect}")
+    if (report["held_out_dataset"], report["eval_cam"]) != (
+            os.path.abspath(dirs["held_out"]), EVAL_HW):
+        raise AssertionError(f"post_run's held-out family ran on "
+                             f"{report['held_out_dataset']!r}")
+    fam = report["held_out_houses"]
+    if not all(math.isfinite(v) for v in fam.values()):
+        raise AssertionError(f"dataset post_run: non-finite {fam}")
+    held_q = scene_lib.load_npz(os.path.join(dirs["held_out"], "scenes.npz"),
+                                "cpu").surf_pts.shape[1]
+    print(f"dataset: post_run --eval_cam {EVAL_HW} took its held-out family "
+          f"from config.json ({held_q=}): final coverage "
+          f"{fam['final_coverage']}, accuracy {fam['mean_accuracy_x100m2']} "
+          f"in {t_report:.3f} s [{card}]")
+    return {"dataset_train": train_counts, "dataset_report": report_counts}
+
+
 def phase_cache_pairs(card: str, scenes, pairs: int) -> None:
     """The full-size eval with the init-view cache (zbuf_impl=pallas) and
     without it (mxu), the same kernels on both, in interleaved pairs."""
@@ -1169,18 +1621,30 @@ def main() -> None:
         phase_cache_pairs(card, eval_scenes, args.cache_pairs)
         return
     rollout_scenes = make_path_scenes(flagship_config(), "flagship")
-    timing = phase_kernels(eval_scenes, rollout_scenes)
-    phase_golden()
-    rollout_counts, rollout_ms = phase_rollout(card, rollout_scenes)
-    eval_counts, eval_ms = phase_eval(card, eval_scenes)
+    data_root = tempfile.mkdtemp(prefix="chip_smoke_dataset_")
     run_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
+        dirs = phase_convert(data_root)
+        dataset_scenes = {
+            "dataset": (scene_lib.load_npz(
+                os.path.join(dirs["train"], "scenes.npz")), HW),
+            "dataset_held_out": (scene_lib.load_npz(
+                os.path.join(dirs["held_out"], "scenes.npz")), EVAL_HW)}
+        timing = phase_kernels(eval_scenes, rollout_scenes, dataset_scenes)
+        del dataset_scenes
+        phase_golden()
+        rollout_counts, rollout_ms = phase_rollout(card, rollout_scenes)
+        eval_counts, eval_ms = phase_eval(card, eval_scenes)
         train_counts = phase_train(card, rollout_scenes, eval_scenes, run_dir)
         report_counts, _ = phase_report(card, run_dir)
+        dda_counts = phase_dda(card, rollout_scenes)
+        dataset_counts = phase_dataset(card, dirs, data_root)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
+        shutil.rmtree(data_root, ignore_errors=True)
     by_path = {"rollout": rollout_counts, "eval": eval_counts,
-               "train": train_counts, "report": report_counts}
+               "train": train_counts, "report": report_counts, **dda_counts,
+               **dataset_counts}
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         kernels.append({
@@ -1193,7 +1657,10 @@ def main() -> None:
             # the profiler's device time per call in each path's run
             "device_ms": eval_ms[name],
             "rollout": {**timing[name]["rollout"],
-                        "device_ms": rollout_ms[name]}})
+                        "device_ms": rollout_ms[name]},
+            # phase 3 at the DDA step's and the converted scenes' shapes
+            **{path: t for path, t in timing[name].items()
+               if path not in ("eval", "rollout")}})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the device "
           "check")
     print(card_line())

@@ -26,7 +26,8 @@ import torch
 
 from gennbv_tpu_torch import spec
 from gennbv_tpu_torch.algo import evaluation, gae, ppo, rollout
-from gennbv_tpu_torch.config import (Config, config_to_dict, eval_env_config,
+from gennbv_tpu_torch.config import (EXTERNAL_DEPTH_MODES, Config,
+                                     config_to_dict, eval_env_config,
                                      with_camera)
 from gennbv_tpu_torch.env import ReconEnv, make_scenes
 from gennbv_tpu_torch.models.policy import ActorCriticPolicy
@@ -60,21 +61,34 @@ _METRIC_KEYS = (
 class Runner:
     def __init__(self, cfg: Config, scenes=None, eval_scenes=None,
                  log_dir: Optional[str] = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", depth_source=None,
+                 eval_depth_source=None, eval_dataset: Optional[str] = None):
+        """depth_source, eval_depth_source: the external depth feeds of
+        renderer.mode "replay" / "callback" (env/depth_sources.py) for the
+        training and the eval env.  eval_dataset: the directory the eval
+        scenes came from, if not the training family's; it is written into
+        the run's config.json (``eval_dataset``), where post_run takes its
+        held-out family from."""
         self.cfg = cfg
+        self.eval_dataset = eval_dataset
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.runner.seed)
 
         self.scenes = scenes if scenes is not None else make_scenes(
             cfg.env.scene, cfg.env.renderer.resolution, self.device)
-        self.env = ReconEnv(cfg.env, self.scenes)
+        self.env = ReconEnv(cfg.env, self.scenes, depth_source)
         self.eval_env = None
         if eval_scenes is not None:
             ev_cfg = eval_env_config(cfg.env)
             if cfg.runner.eval_camera:
+                if cfg.env.renderer.mode in EXTERNAL_DEPTH_MODES:
+                    raise ValueError(
+                        "runner.eval_camera is incompatible with renderer "
+                        f"mode {cfg.env.renderer.mode!r}: the external depth "
+                        "feed is recorded at the training camera resolution")
                 ev_cfg = with_camera(ev_cfg, cfg.runner.eval_camera)
-            self.eval_env = ReconEnv(ev_cfg, eval_scenes)
+            self.eval_env = ReconEnv(ev_cfg, eval_scenes, eval_depth_source)
 
         self.policy = ActorCriticPolicy(cfg.model, self.generator, self.device)
         self.opt = ppo.make_optimizer(cfg.ppo, cfg.env.num_envs)
@@ -166,7 +180,11 @@ class Runner:
         num_iterations = num_iterations or cfg.ppo.total_iters
         if log and self.logger is None:
             self.logger = Logger(
-                self.log_dir, config=config_to_dict(cfg), use_wandb=cfg.runner.wandb,
+                self.log_dir, config={
+                    **config_to_dict(cfg),
+                    **({"eval_dataset": self.eval_dataset}
+                       if self.eval_dataset else {})},
+                use_wandb=cfg.runner.wandb,
                 run_name=cfg.runner.experiment_name,
             )
             self.ckpt = CheckpointManager(os.path.join(self.log_dir, "models"))

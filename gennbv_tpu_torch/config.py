@@ -6,10 +6,11 @@ port's own ``spec``.  The JAX package's config cannot be imported here:
 ``import gennbv_tpu.config`` runs ``gennbv_tpu/__init__.py``'s package
 imports, which pull in jax.
 
-Renderer and multi-device settings the port does not implement yet raise
+Multi-device settings the port does not implement yet raise
 ``NotImplementedError`` naming the ROADMAP item that brings them, at
 construction (so also from ``apply_overrides``); they are never silently
-ignored.  ``gather_impl`` and ``scatter_impl`` are accepted for config
+ignored.  Unknown renderer, z-buffer and carve names raise ``ValueError``.
+``gather_impl`` and ``scatter_impl`` are accepted for config
 compatibility but select nothing: in the port, the device of the tensors
 picks the hand-written CUDA kernel (CUDA tensors) or its plain PyTorch
 version (CPU tensors), whatever they say.
@@ -22,6 +23,11 @@ from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
 from gennbv_tpu_torch import spec
+
+
+# renderer.mode values: the built-in renderers and the external depth feeds
+RENDERER_MODES = ("splat", "dda", "replay", "callback")
+EXTERNAL_DEPTH_MODES = ("replay", "callback")
 
 
 def _unsupported(setting: str, item: str) -> NotImplementedError:
@@ -41,13 +47,25 @@ class CameraConfig:
 
 @dataclass
 class RendererConfig:
-    """Depth renderer.  The port implements mode "splat" with the
-    integer-key-min z-buffer (the semantics of the JAX package's
-    ``zbuf_impl="mxu"`` radix min) and the 3x3 footprint.
-    ``zbuf_impl="pallas"`` turns on the batched splat with the per-scene
-    init-view cache (env/recon_env.py), as it does in the JAX package; it
-    does not pick the z-buffer's implementation, which the device does
-    (ops/splat.py)."""
+    """Depth renderer.  mode "splat" (default): the surface-voxel splat
+    z-buffer (ops/splat.py); "dda": the exact first-hit voxel ray march
+    (ops/render.py); "replay" / "callback": depth fed from outside
+    (env/depth_sources.py).
+
+    On the splat path the z-buffer is the integer-key min of two-digit
+    depth buckets, with the semantics of the JAX package's ``"mxu"``
+    radix min (exact where the radix form overflows); the device picks the
+    fused CUDA kernel or its plain version (ops/splat.py) under ``"mxu"``
+    and ``"pallas"`` alike.  ``zbuf_impl="scatter"`` is the JAX package's
+    exact scatter-min of unquantized depths (ops/splat.py,
+    ``zbuf_scatter_vis_px``).  ``zbuf_impl="pallas"``, survivor compaction
+    (``compact_cap_frac``) and row banding (``band_split``) turn on the
+    batched splat with the per-scene init-view cache (env/recon_env.py),
+    as they do in the JAX package, whose compaction and banding are
+    bit-identical to its dense splat by construction
+    (gennbv_tpu/ops/splat.py:436-457): the port runs the dense fused
+    splat for them.  ``merge_vis_carve`` is likewise bit-identical to the
+    split visibility and carve gathers and selects nothing here."""
     mode: str = "splat"
     resolution: int = 64          # render-grid voxels per axis (R)
     footprint: int = 1            # splat radius in pixels (1 -> 3x3)
@@ -61,23 +79,20 @@ class RendererConfig:
     scatter_impl: str = "mxu"
 
     def __post_init__(self):
-        if self.mode != "splat":
-            raise _unsupported(f"renderer.mode={self.mode!r}",
-                               "Queue 1 item 10")
-        if self.zbuf_impl not in ("mxu", "pallas"):
-            raise _unsupported(f"renderer.zbuf_impl={self.zbuf_impl!r}",
-                               "Queue 1 item 10")
-        if self.merge_vis_carve:
-            raise _unsupported("renderer.merge_vis_carve=True",
-                               "Queue 1 item 10")
-        if self.compact_cap_frac is not None:
-            raise _unsupported("renderer.compact_cap_frac", "Queue 1 item 10")
-        if self.band_split:
-            raise _unsupported("renderer.band_split", "Queue 1 item 10")
-        for name in ("gather_impl", "scatter_impl"):
-            if getattr(self, name) not in ("auto", "mxu", "pallas"):
+        for name, allowed in (("mode", RENDERER_MODES),
+                              ("zbuf_impl", ("mxu", "pallas", "scatter")),
+                              ("gather_impl", ("auto", "mxu", "pallas")),
+                              ("scatter_impl", ("auto", "mxu", "pallas"))):
+            if getattr(self, name) not in allowed:
                 raise ValueError(f"renderer.{name}={getattr(self, name)!r}: "
-                                 "expected 'auto', 'mxu' or 'pallas'")
+                                 f"expected one of {allowed}")
+
+    def band_split_for(self, height: int) -> Optional[int]:
+        """The band count at a sensor height: None when banding is off or
+        the count does not divide the height (the JAX config's rule)."""
+        if not self.band_split:
+            return None
+        return self.band_split if height % self.band_split == 0 else None
 
 
 @dataclass
@@ -87,8 +102,8 @@ class SceneConfig:
     # world box of the mapped region; x,y in [-extent/2, extent/2], z in [0, extent_z]
     extent_xy: float = 10.0
     extent_z: float = 6.0
-    # a procedural family: "procedural" (houses) | "objects" | "convex"
-    # (env/scene.py; terrain and dataset directories are not ported yet)
+    # a procedural family: "procedural" (houses) | "objects" | "convex",
+    # or a dataset directory (env/scene.py; terrain is not ported yet)
     dataset: str = "procedural"
     # procedural generator difficulty: "standard" | "hard"
     difficulty: str = "standard"
@@ -116,7 +131,8 @@ class EnvConfig:
     rgb_k: int = spec.RGB_K
     rgb_h: int = spec.RGB_H
     rgb_w: int = spec.RGB_W
-    # "ztest" = projective z-test carving; "bresenham" is not ported yet
+    # "ztest" = projective z-test carving; "bresenham" = the reference's
+    # exact rays to every hit voxel (ops/carve.py)
     carve_mode: str = "ztest"
     # collision test: occupied render voxel within this world radius of the pose
     collision_radius: float = 0.25
@@ -125,9 +141,9 @@ class EnvConfig:
     scene: SceneConfig = field(default_factory=SceneConfig)
 
     def __post_init__(self):
-        if self.carve_mode != "ztest":
-            raise _unsupported(f"carve_mode={self.carve_mode!r}",
-                               "Queue 1 item 10")
+        if self.carve_mode not in ("ztest", "bresenham"):
+            raise ValueError(f"carve_mode={self.carve_mode!r}: expected "
+                             "'ztest' or 'bresenham'")
 
 
 def with_camera(env_cfg: EnvConfig, resolution: int) -> EnvConfig:

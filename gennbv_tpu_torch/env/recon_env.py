@@ -1,12 +1,21 @@
 """The GenNBV task environment, batched over envs (port of
-``gennbv_tpu/env/recon_env.py``, the splat path).
+``gennbv_tpu/env/recon_env.py``).
 
 ``step(state, actions) -> (state', StepOutput)`` runs the whole env step on
-the scenes' device: discrete-pose decode, splat depth render, visibility,
-hits, z-test carve, occupancy and coverage update, collision, reward,
-termination and auto-reset.  The JAX package writes one env
-(``_splat_step_one`` -> ``_post_splat_one``) and vmaps it; here every op
-carries the env axis itself.
+the scenes' device: discrete-pose decode, depth render, hits, carve,
+occupancy and coverage update, collision, reward, termination and
+auto-reset.  The JAX package writes one env (``_splat_step_one``,
+``_render_one`` / ``_mapping_one``) and vmaps it; here every op carries
+the env axis itself.
+
+``renderer.mode`` picks the depth source:
+- "splat" (default): the surface splat, whose visible points are the
+  hits, and the z-test carve against its z-buffer;
+- "dda": the exact voxel ray march (ops/render.py), then back-projection,
+  the hit scatter of every foreground pixel and the carve, z-test with the
+  march's hit mask as foreground or ``carve_mode="bresenham"``;
+- "replay" / "callback": the same mapping fed by a ``depth_source``
+  (env/depth_sources.py).
 
 Reference semantics kept (env_train_gennbv.py, env_train_base.py):
 - teleport env: the action IS the next camera pose;
@@ -17,16 +26,14 @@ Reference semantics kept (env_train_gennbv.py, env_train_base.py):
   (only_positive), then the termination bonus added after the clip;
 - termination: collision | timeout | coverage > threshold.
 
-With ``renderer.zbuf_impl="pallas"`` the step takes the JAX package's
-batched splat path: fresh envs are masked out of the splat and their
-products come from the per-scene init-view cache (``_splat_step``).  That
-is all the setting selects here: the splat itself runs the fused CUDA
-kernel on a CUDA device and its plain version on the CPU on either path
-(``ops/splat.py``).
-
-Not ported yet (ROADMAP Queue 1 item 10): survivor compaction, row
-banding, the merged vis/carve gather, and the "dda"/"replay"/"callback"
-renderers; the config refuses them at construction.
+Where the JAX package takes its batched splat path (``zbuf_impl="pallas"``,
+survivor compaction or a row band split at this camera height), so does
+the port: fresh envs are masked out of the splat and their products come
+from the per-scene init-view cache (``_splat_step``).  That is all those
+settings select here: the splat itself runs the fused CUDA kernel on a
+CUDA device and its plain version on the CPU on either path
+(``ops/splat.py``); the JAX compaction and banding are bit-identical to
+its dense splat by construction.
 """
 from __future__ import annotations
 
@@ -35,9 +42,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from gennbv_tpu_torch import spec
-from gennbv_tpu_torch.config import EnvConfig
+from gennbv_tpu_torch.config import EXTERNAL_DEPTH_MODES, EnvConfig
 from gennbv_tpu_torch.env import scene as scene_lib
-from gennbv_tpu_torch.ops import camera, carve, fp32, render, splat, voxel
+from gennbv_tpu_torch.ops import (backproject, camera, carve, fp32, render,
+                                  splat, voxel)
 
 
 class EnvState(NamedTuple):
@@ -72,12 +80,19 @@ class StepOutput(NamedTuple):
 
 class ReconEnv:
     """Batched GenNBV environment over a SceneSet; runs on the scenes'
-    device.  `step` does not modify its input state."""
+    device.  `step` does not modify its input state.  depth_source: the
+    external depth feed that renderer.mode "replay" and "callback" need
+    (env/depth_sources.py); the built-in renderers ignore it."""
 
-    def __init__(self, cfg: EnvConfig, scenes: scene_lib.SceneSet):
+    def __init__(self, cfg: EnvConfig, scenes: scene_lib.SceneSet,
+                 depth_source=None):
         fp32.deterministic_fp32()
+        if cfg.renderer.mode in EXTERNAL_DEPTH_MODES and depth_source is None:
+            raise ValueError(f"renderer.mode={cfg.renderer.mode!r} needs a "
+                             "depth_source")
         self.cfg = cfg
         self.scenes = scenes
+        self.depth_source = depth_source
         self.device = scenes.surf_pts.device
         cam = cfg.camera
 
@@ -97,12 +112,16 @@ class ReconEnv:
         self.num_actions = spec.ACTION_DIM
         self.obs_dim = (cfg.pose_buf_len * spec.ACTION_DIM + g ** 3
                         + cfg.rgb_k * cfg.rgb_h * cfg.rgb_w)
-        # Init-view cache (the JAX package's batched splat path, which
-        # renderer.zbuf_impl="pallas" turns on there too): fresh envs take
-        # the forced top-down init view, which sees most of the scene;
-        # their splat is masked out and their hit, carve and grayscale
-        # products come from a per-scene cache built here, once.
-        self._use_init_cache = cfg.renderer.zbuf_impl == "pallas"
+        # Init-view cache (the JAX package's batched splat path, taken
+        # under the same settings as there): fresh envs take the forced
+        # top-down init view, which sees most of the scene; their splat
+        # is masked out and their hit, carve and grayscale products come
+        # from a per-scene cache built here, once.
+        rc = cfg.renderer
+        self._use_init_cache = rc.mode == "splat" and (
+            rc.compact_cap_frac is not None
+            or rc.band_split_for(cam.height) is not None
+            or rc.zbuf_impl == "pallas")
         self._init_cache = None
         if self._use_init_cache:
             self._init_cache = self._build_init_step_cache()
@@ -172,7 +191,8 @@ class ReconEnv:
         zbuf, _, visible = splat.splat_depth_batch(
             sc.surf_pts[scene_id], sc.surf_mask[scene_id], self.intrinsics,
             r_c2w, t_c2w, h, w, cfg.camera.depth_max, veps,
-            cfg.renderer.footprint, skip_env=skip_env)
+            cfg.renderer.footprint, skip_env=skip_env,
+            zbuf_impl=cfg.renderer.zbuf_impl)
         hit, trav = self._hits_carve(scene_id, r_c2w, t_c2w, zbuf, visible)
         gray = camera.depth_to_grayscale(zbuf.reshape(-1, h, w),
                                          cfg.camera.depth_max, cfg.rgb_h,
@@ -197,6 +217,42 @@ class ReconEnv:
             centers, zbuf.reshape(-1, h, w), self.intrinsics, r_c2w, t_c2w,
             0.5 * fp32.mean3(vsize), cfg.camera.depth_max).reshape(-1, g, g, g)
         return hit_grid, traversed
+
+    def _depth_products(self, scene_id, poses):
+        """The "dda", "replay" and "callback" steps' products: (hit_grid
+        [N, G, G, G], traversed [N, G, G, G], gray [N, rgb_h, rgb_w])."""
+        cfg = self.cfg
+        sc = self.scenes
+        g = sc.grid_size
+        h, w = cfg.camera.height, cfg.camera.width
+        r_c2w, t_c2w = camera.pose_to_c2w(poses, cfg.camera.z_offset)
+        if cfg.renderer.mode == "dda":
+            depth, fg = render.render_depth(
+                sc.render_occ[scene_id], sc.box_lo[scene_id],
+                sc.box_hi[scene_id], self.cam_rays, r_c2w, t_c2w,
+                sc.grid_res, 3 * sc.grid_res, cfg.camera.depth_max)
+        else:
+            depth, fg = self.depth_source.render_batch(scene_id, poses)
+        range_gt = sc.range_gt[scene_id]
+        vsize = sc.voxel_size[scene_id]
+        # every foreground pixel's world point is a mapping hit
+        pts, valid = backproject.backproject(depth, fg, self.cam_rays,
+                                             r_c2w, t_c2w)
+        idx, in_bounds = voxel.points_to_voxel_idx(pts, valid, range_gt, vsize)
+        hit_grid = voxel.scatter_hits(g, idx, in_bounds)
+        if cfg.carve_mode == "bresenham":
+            cam_voxel = voxel.pose_to_voxel_idx(poses[:, :3], range_gt, vsize)
+            traversed = carve.carve_bresenham(hit_grid, cam_voxel, g)
+        else:
+            centers = scene_lib.voxel_centers(range_gt, vsize, g)
+            traversed = carve.carve_ztest(
+                centers, depth.reshape(-1, h, w), self.intrinsics, r_c2w,
+                t_c2w, 0.5 * fp32.mean3(vsize),
+                fg=fg.reshape(-1, h, w)).reshape(-1, g, g, g)
+        gray = camera.depth_to_grayscale(depth.reshape(-1, h, w),
+                                         cfg.camera.depth_max, cfg.rgb_h,
+                                         cfg.rgb_w)
+        return hit_grid, traversed, gray
 
     def _build_init_step_cache(self):
         """Splat + hits/carve of the forced init view of every scene:
@@ -226,8 +282,12 @@ class ReconEnv:
         poses = fp32.fma(actions.float(), self.action_unit, self.pose_low)
         episode_len = state.episode_len + 1
 
-        hit_grid, traversed, gray = self._splat_step(state.scene_id, poses,
-                                                     fresh[:, 0])
+        if cfg.renderer.mode == "splat":
+            hit_grid, traversed, gray = self._splat_step(
+                state.scene_id, poses, fresh[:, 0])
+        else:
+            hit_grid, traversed, gray = self._depth_products(state.scene_id,
+                                                             poses)
         sc = self.scenes
         prob_grid = carve.update_prob_grid(state.prob_grid, hit_grid, traversed)
         tri = voxel.tri_cls(prob_grid)

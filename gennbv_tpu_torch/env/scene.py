@@ -19,11 +19,14 @@ A scene is:
 
 The procedural families are ported: ``procedural`` (houses), ``objects``
 (the zero-shot object family) and ``convex`` (single convex primitives, the
-chamfer-floor probe).  ``terrain`` raises (ROADMAP Queue 1 item 11, with
-``env/terrain.py``), and so do dataset directories (item 10).
+chamfer-floor probe).  So are dataset directories: ``<dir>/scenes.npz``
+as ``tools/convert_dataset.py`` writes it (``load_npz``), else a
+reference-layout ``<dir>/gt_grid.npy`` (``load_reference_gt``).
+``terrain`` raises (ROADMAP Queue 1 item 11, with ``env/terrain.py``).
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -470,21 +473,117 @@ def generate_procedural(cfg: SceneConfig, grid_res: int,
     )
 
 
+def _to_device(arrays: dict, grid_res: int, grid_size: int,
+               device) -> SceneSet:
+    """A SceneSet of numpy arrays (every field but the surface set), with
+    the surface set packed from render_occ, each copied to `device`."""
+    surf_pts, surf_mask = _pack_surface_points(
+        arrays["render_occ"], arrays["box_lo"], arrays["box_hi"], grid_res)
+    arrays = dict(arrays, surf_pts=surf_pts, surf_mask=surf_mask)
+    return SceneSet(grid_res=grid_res, grid_size=grid_size, **{
+        k: torch.from_numpy(np.ascontiguousarray(arrays[k])).to(device)
+        for k in SceneSet._fields[:-2]})
+
+
+def load_reference_gt(gt_grid: np.ndarray, grid_res: int,
+                      device: torch.device | str = "cuda") -> SceneSet:
+    """A SceneSet from a reference-format GT tensor ``[S, X, Y, Z, 4]``
+    (channels 0-2 voxel-center coordinates, 3 occupancy), as
+    _init_load_all builds it (env_train_gennbv.py:56-96).  The render grid
+    is the GT occupancy upsampled to R (nearest), for training and eval
+    where the meshes are not at hand; the GT point cloud is the occupied
+    cells' centers, subsampled to 8,192 with ``RandomState(0)``."""
+    s, g = gt_grid.shape[0], gt_grid.shape[1]
+    occ_g = gt_grid[..., 3].astype(np.float32)
+    voxel_size = np.stack(
+        [gt_grid[:, 1, 0, 0, 0] - gt_grid[:, 0, 0, 0, 0],
+         gt_grid[:, 0, 1, 0, 1] - gt_grid[:, 0, 0, 0, 1],
+         gt_grid[:, 0, 0, 1, 2] - gt_grid[:, 0, 0, 0, 2]],
+        axis=-1,
+    ).astype(np.float32)
+    x_range = gt_grid[:, -1, 0, 0, 0] - gt_grid[:, 0, 0, 0, 0]
+    y_range = gt_grid[:, 0, -1, 0, 1] - gt_grid[:, 0, 0, 0, 1]
+    z_range = gt_grid[:, 0, 0, -1, 2] - gt_grid[:, 0, 0, 0, 2]
+    range_gt = np.stack(
+        [x_range / 2, -x_range / 2, y_range / 2, -y_range / 2,
+         z_range, np.zeros_like(z_range)],
+        axis=-1,
+    ).astype(np.float32)
+    box_lo = np.stack([-x_range / 2, -y_range / 2, np.zeros_like(z_range)],
+                      -1) - 0.5 * voxel_size
+    box_hi = np.stack([x_range / 2, y_range / 2, z_range], -1) \
+        + 0.5 * voxel_size
+
+    r = grid_res
+    if r % g == 0:
+        scale = r // g
+        render = np.repeat(np.repeat(np.repeat(
+            occ_g.astype(np.uint8), scale, 1), scale, 2), scale, 3)
+    else:
+        idx = np.floor((np.arange(r) + 0.5) * g / r).astype(int)
+        render = occ_g.astype(np.uint8)[:, idx][:, :, idx][:, :, :, idx]
+
+    # GT point cloud: GT-voxel centers of occupied cells
+    max_q = 8192
+    gt_points = np.zeros((s, max_q, 3), dtype=np.float32)
+    gt_points_mask = np.zeros((s, max_q), dtype=bool)
+    rng = np.random.RandomState(0)
+    for i in range(s):
+        idx = np.argwhere(occ_g[i] > 0)
+        mins = np.array([range_gt[i, 1], range_gt[i, 3], range_gt[i, 5]])
+        pts = mins[None, :] + idx * voxel_size[i][None, :]
+        if len(pts) > max_q:
+            pts = pts[rng.choice(len(pts), max_q, replace=False)]
+        gt_points[i, : len(pts)] = pts
+        gt_points_mask[i, : len(pts)] = True
+
+    return _to_device(dict(
+        render_occ=render.reshape(s, -1),
+        box_lo=box_lo.astype(np.float32),
+        box_hi=box_hi.astype(np.float32),
+        grid_gt=occ_g,
+        voxel_size=voxel_size,
+        range_gt=range_gt,
+        num_valid_voxel=occ_g.sum(axis=(1, 2, 3)),
+        gt_points=gt_points,
+        gt_points_mask=gt_points_mask,
+    ), r, g, device)
+
+
+def load_npz(path: str, device: torch.device | str = "cuda") -> SceneSet:
+    """Load a SceneSet written by ``tools/convert_dataset.py`` (or the
+    port's ``gennbv_tpu_torch/tools/convert_dataset.py``)."""
+    d = np.load(path)
+    keys = ("render_occ", "box_lo", "box_hi", "grid_gt", "voxel_size",
+            "range_gt", "gt_points", "gt_points_mask")
+    arrays = {k: d[k] for k in keys}
+    arrays["num_valid_voxel"] = arrays["grid_gt"].sum(axis=(1, 2, 3))
+    return _to_device(arrays, int(d["grid_res"]), int(d["grid_size"]), device)
+
+
 def make_scenes(cfg: SceneConfig, grid_res: int,
                 device: torch.device | str = "cuda") -> SceneSet:
-    """The scene set a config names, on `device`.  Unlike the JAX package
-    the port keeps no on-disk scene cache: it writes nothing outside the
-    caller's control."""
+    """The scene set a config names, on `device`: a procedural family, or
+    a dataset directory holding ``scenes.npz`` (its own render
+    resolution; `grid_res` is then unused) or else a reference-layout
+    ``gt_grid.npy``.  Unlike the JAX package the port keeps no on-disk
+    scene cache: it writes nothing outside the caller's control."""
     if cfg.dataset == "terrain":
         raise NotImplementedError(
             "scene.dataset='terrain' is not implemented in gennbv_tpu_torch "
             "yet (ROADMAP.md Queue 1 item 11, with env/terrain.py)")
-    if cfg.dataset not in PROCEDURAL_FAMILIES:
-        raise NotImplementedError(
-            f"scene.dataset={cfg.dataset!r}: dataset directories are not "
-            "implemented in gennbv_tpu_torch yet (ROADMAP.md Queue 1 item "
-            f"10); the procedural families are {PROCEDURAL_FAMILIES}")
-    return generate_procedural(cfg, grid_res, device=device)
+    if cfg.dataset in PROCEDURAL_FAMILIES:
+        return generate_procedural(cfg, grid_res, device=device)
+    npz = os.path.join(cfg.dataset, "scenes.npz")
+    if os.path.exists(npz):
+        return load_npz(npz, device)
+    gt = os.path.join(cfg.dataset, "gt_grid.npy")
+    if not os.path.exists(gt):
+        raise FileNotFoundError(
+            f"scene.dataset={cfg.dataset!r} is neither a procedural family "
+            f"{PROCEDURAL_FAMILIES} nor a directory holding scenes.npz or "
+            "gt_grid.npy")
+    return load_reference_gt(np.load(gt), grid_res, device)
 
 
 def voxel_centers(range_gt: torch.Tensor, voxel_size: torch.Tensor,

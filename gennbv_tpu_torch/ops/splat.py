@@ -17,11 +17,18 @@ number of points per pixel (the radix form goes one bucket low once a
 (pixel, bucket) pair holds 2^12 points or more).
 
 The device of the tensors picks the implementation, whatever
-``renderer.zbuf_impl`` says: on CUDA tensors ``splat_depth`` runs the
-z-buffer, pool and visibility as the fused CUDA kernel of
-``ops/fused_splat.py`` (the port of the JAX package's Pallas kernel); on
-CPU tensors it runs their plain composition ``zbuf_vis_px``.  Both give
-the same bits.
+``renderer.zbuf_impl`` says ("mxu" or "pallas"): on CUDA tensors
+``splat_depth`` runs the z-buffer, pool and visibility as the fused CUDA
+kernel of ``ops/fused_splat.py`` (the port of the JAX package's Pallas
+kernel); on CPU tensors it runs their plain composition ``zbuf_vis_px``.
+Both give the same bits.
+
+``zbuf_impl="scatter"`` is another function: the JAX package's exact
+scatter-min of the unquantized depths (``_zbuf_px``'s scatter branch, plain
+XLA there), pooled alike, with the visibility slack not widened.  The port
+runs it as ``zbuf_scatter_vis_px`` on either device: a PyTorch
+``scatter_reduce_`` and the pool, then the visibility read through
+``gather.gather_image`` (its CUDA kernel on the card).
 """
 from __future__ import annotations
 
@@ -125,33 +132,61 @@ def zbuf_vis_px(vic, uic, z, ok, height: int, width: int, depth_max: float,
     return zbuf2d.reshape(n, height * width), visible
 
 
+def zbuf_scatter_vis_px(vic, uic, z, ok, height: int, width: int,
+                        depth_max: float, voxel_eps: torch.Tensor,
+                        footprint: int = 1):
+    """``zbuf_impl="scatter"``: pooled z-buffer [N, H*W] of the exact
+    per-pixel minimum depth of the valid points (depth_max where none),
+    and visibility [N, Q] with slack voxel_eps [N], the pooled depth read
+    rounded to bf16 by ``gather.gather_image``."""
+    n = z.shape[0]
+    env = torch.arange(n, device=z.device)[:, None] * (height * width)
+    pix = env + vic.long() * width + uic.long()
+    zbuf0 = torch.full((n * height * width,), depth_max, dtype=torch.float32,
+                       device=z.device)
+    zbuf0.scatter_reduce_(0, pix.reshape(-1),
+                          torch.where(ok, z, depth_max).reshape(-1),
+                          reduce="amin")
+    zbuf2d = min_pool(zbuf0.reshape(n, height, width), footprint, depth_max)
+    z_at_px = gather.gather_image(zbuf2d, vic, uic)
+    visible = ok & (z <= z_at_px + voxel_eps[:, None])
+    return zbuf2d.reshape(n, height * width), visible
+
+
 def splat_depth(surf_pts, surf_mask, k, r_c2w, t_c2w, height: int, width: int,
-                depth_max: float, voxel_eps: torch.Tensor, footprint: int = 1):
+                depth_max: float, voxel_eps: torch.Tensor, footprint: int = 1,
+                zbuf_impl: str = "mxu"):
     """Returns (zbuf [N, H*W], fg [N, H*W] bool, visible [N, Q] bool),
     through the fused kernel on CUDA tensors and its plain version on CPU
-    tensors."""
+    tensors, or, under zbuf_impl "scatter", ``zbuf_scatter_vis_px``."""
     # imported here: fused_splat's plain version is this module's zbuf_vis_px
     from gennbv_tpu_torch.ops import fused_splat
     vic, uic, z, ok = project_px(surf_pts, surf_mask, k, r_c2w, t_c2w,
                                  height, width)
-    # z is a column of p_cam: the kernel takes it packed
-    zbuf, visible = fused_splat.zbuf_visible(
-        vic, uic, z.contiguous(), ok, voxel_eps.contiguous(), height, width,
-        depth_max, footprint)
+    if zbuf_impl == "scatter":
+        zbuf, visible = zbuf_scatter_vis_px(vic, uic, z, ok, height, width,
+                                            depth_max, voxel_eps, footprint)
+    else:
+        # z is a column of p_cam: the kernel takes it packed
+        zbuf, visible = fused_splat.zbuf_visible(
+            vic, uic, z.contiguous(), ok, voxel_eps.contiguous(), height,
+            width, depth_max, footprint)
     fg = zbuf < depth_max - 1e-6
     return zbuf, fg, visible
 
 
 def splat_depth_batch(surf_pts, surf_mask, k, r_c2w, t_c2w, height: int,
                       width: int, depth_max: float, voxel_eps: torch.Tensor,
-                      footprint: int = 1, skip_env=None):
+                      footprint: int = 1, skip_env=None,
+                      zbuf_impl: str = "mxu"):
     """The JAX package's batched splat on its dense branch: ``splat_depth``
     with every point of the envs in ``skip_env`` [N] bool masked out (the
     caller substitutes their outputs from the init-view cache).  Its
     survivor compaction and row banding only shorten the TPU's matrix
-    products and are bit-identical to the dense branch; they are not
-    ported, and the config refuses the settings that select them."""
+    products and are bit-identical to the dense branch
+    (gennbv_tpu/ops/splat.py:436-457), so the port runs the dense branch
+    for them."""
     if skip_env is not None:
         surf_mask = surf_mask & ~skip_env[:, None]
     return splat_depth(surf_pts, surf_mask, k, r_c2w, t_c2w, height, width,
-                       depth_max, voxel_eps, footprint)
+                       depth_max, voxel_eps, footprint, zbuf_impl)

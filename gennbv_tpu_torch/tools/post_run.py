@@ -21,7 +21,11 @@ PLY/OBJ through ``train/play.py``.
 
 The run directory is one written by the port's Runner (config.json,
 models/).  Prints the report as JSON and writes it to
-<run_dir>/report.json, with the JAX report's keys.  --export NAME also
+<run_dir>/report.json, with the JAX report's keys and two more: the
+held-out family's dataset (``held_out_dataset``) and ``eval_cam``.
+The held-out family runs on --holdout_dataset, else on the eval dataset
+the run recorded (``train_eval_gennbv --eval_dataset``), else on the
+run's training dataset under the eval seed.  --export NAME also
 copies the claim-backing artifacts (report.json, config.json, an
 eval-curve CSV and the last metrics row) into the tracked reports/NAME/.
 Runs on the CUDA card unless --device cpu is given.
@@ -129,12 +133,13 @@ def run_env_config(raw: dict, eval_cam: int = 0):
 
 
 def families(raw: dict, eval_seed: int, holdout_dataset=None):
-    """(tag, dataset, seed) of the report's three scene families."""
-    if holdout_dataset:
-        raise NotImplementedError(
-            "--holdout_dataset: dataset directories are not implemented in "
-            "gennbv_tpu_torch yet (ROADMAP.md Queue 1 item 10)")
-    holdout = raw.get("env", {}).get("scene", {}).get("dataset", "procedural")
+    """(tag, dataset, seed) of the report's three scene families.  The
+    held-out family's dataset is holdout_dataset, else the eval dataset
+    the run recorded (train_eval_gennbv --eval_dataset), else the run's
+    training dataset under the eval seed (the JAX post_run's rule)."""
+    holdout = (holdout_dataset or raw.get("eval_dataset")
+               or raw.get("env", {}).get("scene", {}).get("dataset",
+                                                          "procedural"))
     return (("held_out_houses", holdout, eval_seed),
             ("objects_zero_shot", "objects", eval_seed + 1),
             ("convex_floor_probe", "convex", eval_seed + 2))
@@ -233,8 +238,10 @@ def main(argv=None) -> dict:
                          "(held_out_houses,objects_zero_shot,"
                          "convex_floor_probe); default all")
     ap.add_argument("--holdout_dataset", type=str, default=None,
-                    help="scene dataset directory for the held_out_houses "
-                         "family (not implemented in the port yet)")
+                    help="scene dataset for the held_out_houses family "
+                         "(default: the eval dataset the run recorded in "
+                         "config.json, else the run's training dataset + "
+                         "eval seed, correct for procedural generators)")
     ap.add_argument("--report_name", type=str, default="report.json",
                     help="file name of the report inside run_dir")
     ap.add_argument("--device", type=str, default="cuda",
@@ -254,7 +261,9 @@ def main(argv=None) -> dict:
     fams = families(raw, args.eval_seed, args.holdout_dataset)
     policy = load_policy(raw, models_dir, ckpt_name, args.device)
 
-    report = {"checkpoint": ckpt_name}
+    # beside the JAX report's keys: what the held-out family ran on
+    report = {"checkpoint": ckpt_name, "held_out_dataset": fams[0][1],
+              "eval_cam": args.eval_cam}
     only = set(args.only.split(",")) if args.only else None
     for tag, dataset, seed in fams:
         if only is not None and tag not in only:

@@ -6,10 +6,16 @@ is a second env on the same device.
     python -m gennbv_tpu_torch.train.train_eval_gennbv --num_envs 256 \\
         --set env.camera.height=128 --set env.camera.width=128 \\
         --set runner.eval_camera=400
+
+On converted meshes (``gennbv_tpu_torch/tools/convert_dataset.py``):
+``--set env.scene.dataset=<train dir> --eval_dataset <held-out dir>``.
+The eval dataset is recorded in the run's config.json (``eval_dataset``),
+where ``tools/post_run.py`` takes its held-out family from.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 
 from gennbv_tpu_torch import spec
 from gennbv_tpu_torch.config import apply_overrides
@@ -22,14 +28,13 @@ def main(argv=None):
     p = build_argparser()
     p.add_argument("--eval_seed", type=int, default=100)
     p.add_argument("--eval_dataset", type=str, default=None,
-                   help="scene dataset for the held-out eval batch; not "
-                        "implemented in the port, whose scenes are "
-                        "procedural only")
+                   help="scene dataset for the held-out eval batch (default: "
+                        "the training dataset, correct for procedural "
+                        "generators, where the eval seed yields unseen "
+                        "scenes; a converted-mesh directory needs its own "
+                        "held-out directory: the reference's batch-12 "
+                        "setA split, env_eval_gennbv.py:16-50)")
     args = p.parse_args(argv)
-    if args.eval_dataset:
-        raise NotImplementedError(
-            "--eval_dataset is not implemented in gennbv_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 10): its scenes are procedural only")
     cfg = config_from_args(args)
     if cfg.runner.eval_freq == 0:
         # reference eval_freq = 500000 / num_envs env-steps ~= every 15 iters
@@ -37,13 +42,17 @@ def main(argv=None):
 
     from gennbv_tpu_torch.algo.runner import Runner
 
-    # held-out eval scenes: one per eval env, another generator seed
+    # held-out eval scenes: one per eval env, another generator seed (or a
+    # separate converted-mesh directory via --eval_dataset)
     eval_scene_cfg = dataclasses.replace(
-        cfg.env.scene, num_scenes=spec.EVAL_NUM_ENVS, seed=args.eval_seed)
+        cfg.env.scene, num_scenes=spec.EVAL_NUM_ENVS, seed=args.eval_seed,
+        **({"dataset": args.eval_dataset} if args.eval_dataset else {}))
     eval_scenes = make_scenes(eval_scene_cfg, cfg.env.renderer.resolution,
                               args.device)
-
-    run(Runner(cfg, eval_scenes=eval_scenes, device=args.device), args)
+    eval_dataset = (os.path.abspath(args.eval_dataset) if args.eval_dataset
+                    else None)
+    run(Runner(cfg, eval_scenes=eval_scenes, device=args.device,
+               eval_dataset=eval_dataset), args)
 
 
 if __name__ == "__main__":

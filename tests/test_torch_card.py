@@ -370,3 +370,68 @@ def test_training_reproduces_itself(cuda, tmp_path):
     assert "eval/final_coverage" in snaps[0]["logged"][1]
     assert snaps[0]["count"] > 0
     assert first_difference(*snaps) is None
+
+
+def test_dda_step_kernels_equal_plain(cuda):
+    """The DDA step's shapes at 128^2 and R=64 on 16 scenes: the hit
+    scatter of every pixel ([16, 16384] points) and the gather of the
+    ray march's hit mask (a {0,1} image, 8000 voxel pixels an env), each
+    bit-equal to its plain version with one launch a call."""
+    import chip_smoke
+    from gennbv_tpu_torch import config
+    from gennbv_tpu_torch.env import make_scenes
+    from gennbv_tpu_torch.ops import gather, scatter
+
+    scenes = make_scenes(config.SceneConfig(num_scenes=16, seed=0), 64)
+    (idx, valid), (fg, vi, ui) = chip_smoke._dda_step_inputs(
+        scenes, config.CameraConfig(height=128, width=128))
+    assert idx.shape == (16, 128 * 128, 3) and valid.any()
+    assert set(fg.unique().tolist()) == {0.0, 1.0}
+    chip_smoke.reset_launches()
+    hits = scatter.scatter_cells_any(idx, valid, 20)
+    free = gather.gather_image(fg, vi, ui)
+    torch.cuda.synchronize()
+    assert chip_smoke.launches() == {"gather_image": 1, "scatter_cells_any": 1,
+                                     "zbuf_visible": 0}
+    assert torch.equal(hits, scatter.scatter_cells_any_ref(idx, valid, 20))
+    assert torch.equal(free, gather.gather_image_ref(fg, vi, ui))
+    assert hits.sum() > 0 and free.sum() > 0
+
+
+@pytest.mark.parametrize("carve_mode", ["ztest", "bresenham"])
+def test_dda_env_on_card_matches_cpu(cuda, carve_mode):
+    """renderer.mode=dda, 8 envs at 32^2, R=16, 6-step episodes: each step
+    launches the hit scatter once and the gather twice (ztest) or never
+    (bresenham), and envs 0-1 equal the same envs on the CPU over reset
+    and 7 steps (an auto-reset among them): every field bit for bit, the
+    grayscale frames to 1e-4."""
+    import chip_smoke
+    from gennbv_tpu_torch import config, spec
+    from gennbv_tpu_torch.env import ReconEnv, make_scenes
+
+    cfg = config.EnvConfig(
+        num_envs=8, max_episode_length=6, carve_mode=carve_mode,
+        camera=config.CameraConfig(height=32, width=32),
+        renderer=config.RendererConfig(resolution=16, mode="dda"),
+        scene=config.SceneConfig(num_scenes=4, seed=1))
+    scenes = make_scenes(cfg.scene, 16)
+    env = ReconEnv(cfg, scenes)
+    cpu = ReconEnv(dataclasses.replace(cfg, num_envs=2),
+                   chip_smoke._cpu_scenes(scenes))
+    expect = chip_smoke.dda_expect(carve_mode)
+    rng = np.random.default_rng(0)
+    acts = torch.from_numpy(np.stack([rng.integers(0, k, (7, 8))
+                                      for k in spec.NVEC], -1).astype(np.int32))
+    chip_smoke.reset_launches()
+    card = env.reset(8)
+    assert chip_smoke.launches() == expect
+    host = cpu.reset(2)
+    for t in range(8):
+        first = tuple(type(x)(*(y[:2] for y in x)) for x in card)
+        chip_smoke._same_step(f"step {t}", first, host, 1e-4)
+        if t == 7:
+            break
+        card = chip_smoke._step_counted(env, card[0], acts[t].cuda(), expect,
+                                        f"step {t}")
+        host = cpu.step(host[0], acts[t, :2])
+    assert card[1].coverage.max() > 0

@@ -139,8 +139,19 @@ def test_post_run_picks_checkpoints_and_refuses_datasets(tmp_path):
     assert post_run.pick_checkpoint(str(models)) == "rl_model_best_episode_reward"
     (models / "rl_model_best_episode_reward").unlink()
     assert post_run.pick_checkpoint(str(models)) == "rl_model_1024_steps"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        post_run.families({}, 100, holdout_dataset="data_rehearsal/eval")
+    # the held-out family's dataset: --holdout_dataset, else the run's
+    # recorded eval dataset, else its training dataset (the JAX rule)
+    raw = {"env": {"scene": {"dataset": "objects"}}}
+    fams = post_run.families(raw, 100, holdout_dataset="data_rehearsal/eval")
+    assert fams == (("held_out_houses", "data_rehearsal/eval", 100),
+                    ("objects_zero_shot", "objects", 101),
+                    ("convex_floor_probe", "convex", 102))
+    assert post_run.families(dict(raw, eval_dataset="/d/eval"), 7)[0] == (
+        "held_out_houses", "/d/eval", 7)
+    assert post_run.families(dict(raw, eval_dataset="/d/eval"), 7,
+                             "/d/other")[0][1] == "/d/other"
+    assert post_run.families(raw, 7)[0] == ("held_out_houses", "objects", 7)
+    assert post_run.families({}, 7)[0][1] == "procedural"
 
 
 def test_runner_logs_accuracy_and_post_run_reads_its_run(tmp_path, small_eval,
@@ -173,7 +184,11 @@ def test_runner_logs_accuracy_and_post_run_reads_its_run(tmp_path, small_eval,
     report = post_run.main([str(tmp_path), "--device", "cpu",
                             "--only", "held_out_houses"])
     assert report["checkpoint"] == "rl_model_best_eval_coverage"
-    assert set(report) == {"checkpoint", "held_out_houses", "artifacts"}
+    assert set(report) == {"checkpoint", "held_out_dataset", "eval_cam",
+                           "held_out_houses", "artifacts"}
+    # no eval dataset recorded: the training family, as the JAX post_run
+    assert report["held_out_dataset"] == "procedural"
+    assert report["eval_cam"] == 0
     assert sorted(os.listdir(report["artifacts"])) == [
         "episode.gif", "recon.obj", "recon.ply"]
     out = post_run.export_report(str(tmp_path), "smoke", root=str(tmp_path))

@@ -26,14 +26,23 @@ def test_generate_procedural_bit_equal(num_scenes, grid_res):
     assert got.surf_pts.shape[1] % 1024 == 0
 
 
-def test_unported_datasets_raise():
-    """Dataset directories wait for Queue 1 item 10, terrain for item 11
-    (with env/terrain.py); the objects and convex families are ported
+def test_unported_datasets_raise(tmp_path):
+    """Terrain waits for Queue 1 item 11 (with env/terrain.py); a dataset
+    directory loads (tests/test_torch_dataset.py holds both forms to the
+    JAX package), and so do the objects and convex families
     (tests/test_torch_chamfer.py holds them to the JAX generator)."""
-    for dataset, item in (("terrain", "11"), ("/some/dir", "10")):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-            pt_scene.make_scenes(SceneConfig(num_scenes=1, dataset=dataset), 16,
-                                 "cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        pt_scene.make_scenes(SceneConfig(num_scenes=1, dataset="terrain"), 16,
+                             "cpu")
+    src = pt_scene.generate_procedural(SceneConfig(num_scenes=2, seed=3), 16,
+                                       device="cpu")
+    g = src.grid_size
+    gt = torch.cat([pt_scene.voxel_centers(src.range_gt, src.voxel_size, g)
+                    .reshape(2, g, g, g, 3), src.grid_gt[..., None]], -1)
+    np.save(tmp_path / "gt_grid.npy", gt.numpy())
+    scenes = pt_scene.make_scenes(SceneConfig(dataset=str(tmp_path)), 16, "cpu")
+    assert scenes.num_scenes == 2 and scenes.grid_res == 16
+    assert torch.equal(scenes.grid_gt, src.grid_gt)
     for dataset in ("objects", "convex"):
         scenes = pt_scene.make_scenes(SceneConfig(num_scenes=1, dataset=dataset),
                                       16, "cpu")

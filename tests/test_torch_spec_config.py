@@ -58,20 +58,16 @@ def test_apply_overrides_same_tree():
 
 
 @pytest.mark.parametrize("override", [
+    "env.renderer.zbuf_impl=pallas", "env.renderer.scatter_impl=pallas",
     "env.renderer.zbuf_impl=scatter",
     "env.renderer.merge_vis_carve=true", "env.renderer.compact_cap_frac=0.5",
     "env.renderer.band_split=8", "env.renderer.mode=dda",
+    "env.renderer.mode=replay", "env.renderer.mode=callback",
     "env.carve_mode=bresenham",
 ])
-def test_unsupported_renderer_settings_raise(override):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue"):
-        pt_config.apply_overrides(pt_config.Config(), (override,))
-
-
-@pytest.mark.parametrize("override", [
-    "env.renderer.zbuf_impl=pallas", "env.renderer.scatter_impl=pallas",
-])
 def test_pallas_renderer_settings_accepted(override):
+    """Every renderer setting of the JAX config is accepted, with the same
+    config tree (tests/test_torch_dda_env.py runs the env under each)."""
     got = pt_config.apply_overrides(pt_config.Config(), (override,))
     want = jax_config.apply_overrides(jax_config.Config(), (override,))
     assert pt_config.config_to_dict(got) == jax_config.config_to_dict(want)

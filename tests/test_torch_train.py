@@ -334,17 +334,40 @@ def test_train_cli(tmp_path, capsys):
     assert logged == [3]
 
 
-def test_train_eval_cli(tmp_path, capsys):
+def test_train_eval_cli(tmp_path, capsys, monkeypatch):
     """train_eval_gennbv: 50 held-out scenes of --eval_seed, evaluated every
-    --eval_freq iterations; --eval_dataset is refused."""
+    --eval_freq iterations.  Then, with the eval protocol cut to 4 envs x
+    5 steps, --eval_dataset on a converted directory: the eval runs on its
+    scenes, config.json records it, and post_run's held-out family takes
+    it from there."""
     train_eval_gennbv.main(CLI_ARGS + ["--log_dir", str(tmp_path), "--eval_freq", "2"])
     assert "eval/final_coverage" in capsys.readouterr().out
     (run,) = os.listdir(tmp_path)
     logged = [json.loads(line) for line in open(tmp_path / run / "metrics.jsonl")]
     assert "eval/final_coverage" not in logged[0]
     assert np.isfinite(logged[1]["eval/final_coverage"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        train_eval_gennbv.main(CLI_ARGS + ["--eval_dataset", "houses"])
+    with open(tmp_path / run / "config.json") as f:
+        assert "eval_dataset" not in json.load(f)
+
+    from gennbv_tpu_torch import spec
+    from gennbv_tpu_torch.tools import convert_dataset, post_run
+    monkeypatch.setattr(spec, "EVAL_NUM_ENVS", 4)
+    monkeypatch.setattr(spec, "MAX_EPISODE_LENGTH_EVAL", 5)
+    meshes, data = tmp_path / "meshes", tmp_path / "eval_data"
+    convert_dataset.write_procedural_meshes(str(meshes), 2, seed=100, res=16)
+    convert_dataset.convert(str(meshes), str(data), 16, 20, 1.0, verbose=False)
+    logs = tmp_path / "ds"
+    train_eval_gennbv.main(CLI_ARGS + ["--log_dir", str(logs), "--eval_freq", "2",
+                                       "--eval_dataset", str(data)])
+    (run,) = os.listdir(logs)
+    with open(logs / run / "config.json") as f:
+        assert json.load(f)["eval_dataset"] == str(data)
+    logged = [json.loads(line) for line in open(logs / run / "metrics.jsonl")]
+    assert np.isfinite(logged[1]["eval/final_coverage"])
+    report = post_run.main([str(logs / run), "--device", "cpu", "--no-artifacts",
+                            "--only", "held_out_houses"])
+    assert report["held_out_dataset"] == str(data) and report["eval_cam"] == 0
+    assert np.isfinite(report["held_out_houses"]["final_coverage"])
 
 
 def test_phase_timer_and_trace(tmp_path):

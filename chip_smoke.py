@@ -99,6 +99,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    its held-out family from the run's config.json.  Checks each kernel's
    exact launch count and finite metrics; prints the convert's seconds,
    Q, iteration seconds, env-steps/s and peak memory.
+11. the continuous-control path at the CLI's full width, which launches
+   none of the three kernels: train_rsl.main --task drone_velocity
+   --num_envs 4096 --num_steps_per_env 24 --hidden 512 256 128 (the
+   default ContinuousPPOConfig: 5 epochs x 4 minibatches of 24,576 rows,
+   adaptive KL) for 3 iterations into a temporary log dir, saving each,
+   then --resume to 4.  Checks that every logged metric is finite and
+   the learning rate within [min_lr, max_lr], that the resumed run
+   starts at iteration 3 from the parameters saved there, that no kernel
+   launched, that two OnPolicyRunners from one seed end 2 iterations with
+   the same parameters, optimizer state and logged metrics (but time/*)
+   bit for bit, and that 256 drones stepped 8 times on the CPU from the
+   card's state, with the same actions, agree with the card within
+   tests/test_torch_drone.py's tolerance (the trained policy's forward
+   within tests/test_torch_continuous.py's); prints each iteration's env-steps/s
+   with its rollout and update seconds, the device-busy share and device
+   activities per env step of an iteration under torch.profiler, and
+   peak memory.
 The meshes are converted before phase 3, which times the kernels at
 their Q.  The last two lines of stdout are the kernel summary with the card's name
 and power limit before them, then the result line
@@ -126,22 +143,25 @@ import numpy as np
 import torch
 
 from gennbv_tpu_torch import config, spec
-from gennbv_tpu_torch.algo import evaluation, gae, ppo, rollout
+from gennbv_tpu_torch.algo import evaluation, gae, on_policy_runner, ppo, rollout
+from gennbv_tpu_torch.algo import ppo_continuous as ppoc
 from gennbv_tpu_torch.algo.repro import first_difference, read_logged, snapshot
 from gennbv_tpu_torch.algo.runner import _METRIC_KEYS, Runner
 from gennbv_tpu_torch.env import ReconEnv, make_scenes
 from gennbv_tpu_torch.env import scene as scene_lib
+from gennbv_tpu_torch.env.drone_robot import DroneRobot
 from gennbv_tpu_torch.env.depth_sources import (CallbackDepthSource,
                                                 ReplayBank,
                                                 ReplayDepthSource,
                                                 record_replay_bank)
+from gennbv_tpu_torch.models.actor_critic import GaussianActorCritic
 from gennbv_tpu_torch.models.policy import ActorCriticPolicy
 from gennbv_tpu_torch.models import distributions
 from gennbv_tpu_torch.ops import (_cuda, backproject, camera, carve, fp32,
                                   fused_splat, gather, render, scatter, splat,
                                   voxel)
 from gennbv_tpu_torch.tools import convert_dataset, post_run
-from gennbv_tpu_torch.train import play, train_eval_gennbv
+from gennbv_tpu_torch.train import play, train_eval_gennbv, train_rsl
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "mapping_golden.npz")
@@ -160,11 +180,24 @@ CPU_ENVS = 2                             # envs held to the CPU in phase 9
 N_MESHES = 256                           # phase 10's training meshes
 DATASET_ITERS = 2                        # phase 10's training iterations
 G = spec.GRID_SIZE                       # the 20^3 grid; the carve gathers G^3
+# phase 11: train_rsl's iterations before the resume, its width, and the
+# drones and steps held to the CPU
+RSL_ITERS, RSL_ENVS, RSL_STEPS, RSL_HIDDEN = 3, 4096, 24, (512, 256, 128)
+RSL_CPU_ENVS, RSL_CPU_STEPS = 256, 8
+# tests/test_torch_drone.py's tolerance of the drone's state and obs, and
+# tests/test_torch_continuous.py's of the MLP forward
+DRONE_RTOL, DRONE_ATOL = 1e-5, 1e-5
+MLP_RTOL, MLP_ATOL = 1e-5, 1e-6
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s,
 # and float32 operations/s outside the tensor cores, the rate the bounds
 # below charge every arithmetic, compare and integer operation at
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# the profiler's own kernels on each side of a profiled run, their
+# length, the takes of a profile, and the most pads a profile lost on
+# each side (see _profiled)
+PROFILE_PADS, PAD_CYCLES, PROFILE_TAKES = 256, 50_000, 5
+PADS_LOST = {"leading": 0, "trailing": 0}
 
 KERNELS = {
     "gather_image": ("gennbv_tpu_torch/csrc/gather_image.cu",
@@ -274,29 +307,68 @@ def _equal(label, got, want) -> float:
     return err
 
 
+def _profiled(label: str, run):
+    """Runs `run` under torch.profiler; returns its value and its device
+    activities (user annotations excluded) in the order of their device
+    start.
+
+    On the card, a profile taken in a process that has worked for a while
+    can lose device records at either end of its session, more of them
+    the older the process, now and then all of them (measured by
+    gennbv_tpu_torch/tools/profile_loss.py).  So PROFILE_PADS spin
+    kernels of the profiler's own, each spinning PAD_CYCLES, are launched
+    and finished on each side of `run`: its activities are those between
+    the last leading pad and the first trailing one.  A profile that kept
+    no pad on one side lost more than that: the profiler's fault, not the
+    program's, so it is taken again, up to PROFILE_TAKES times, each take
+    printed.  PADS_LOST keeps the most pads lost on each side."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    def pads():
+        for _ in range(PROFILE_PADS):
+            torch.cuda._sleep(PAD_CYCLES)
+        torch.cuda.synchronize()
+
+    for take in range(1, PROFILE_TAKES + 1):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+            pads()
+            value = run()
+            torch.cuda.synchronize()
+            pads()
+        spans = sorted((e for e in prof.events()
+                        if e.device_type == DeviceType.CUDA
+                        and not e.is_user_annotation),
+                       key=lambda e: e.time_range.start)
+        is_pad = ["spin_kernel" in e.name for e in spans]
+        lead = next((i for i, p in enumerate(is_pad) if not p), len(spans))
+        tail = len(spans) - next((i for i, p in enumerate(reversed(is_pad))
+                                  if not p), len(spans))
+        if 0 < lead <= tail < len(spans) and not any(is_pad[lead:tail]):
+            PADS_LOST["leading"] = max(PADS_LOST["leading"], PROFILE_PADS - lead)
+            PADS_LOST["trailing"] = max(PADS_LOST["trailing"],
+                                        PROFILE_PADS - (len(spans) - tail))
+            return value, spans[lead:tail]
+        print(f"{label}: profile {take} of {PROFILE_TAKES} lost the device's "
+              f"records: {len(spans)} device activities, {sum(is_pad)} of "
+              f"the {2 * PROFILE_PADS} pads, {lead} leading, "
+              f"{len(spans) - tail} trailing")
+    raise AssertionError(f"{label}: the profiler lost the device's records "
+                         f"{PROFILE_TAKES} times")
+
+
 def profile_calls(fn, calls: int = 20) -> tuple[float, float, set]:
     """Runs fn `calls` times back to back under torch.profiler, after one
     call outside it; returns the device activities per call, their device
     time per call in ms, and their names."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
+    def run():
+        for _ in range(calls):
+            fn()
+
     fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        # a device activity of its own opens the profiled window: the
-        # calls' activities are those that start inside the "calls" range
-        torch.ones(1, device="cuda")
-        torch.cuda.synchronize()
-        with torch.profiler.record_function("calls"):
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-    events = prof.events()
-    window = next(e.time_range for e in events if e.name == "calls")
-    # device activities inside the range, less the range's own device mark
-    spans = [e for e in events if e.device_type == DeviceType.CUDA
-             and e.time_range.start >= window.start and e.name != "calls"]
+    _, spans = _profiled("profile_calls", run)
     return (len(spans) / calls,
             sum(e.time_range.end - e.time_range.start for e in spans) / calls / 1e3,
             {e.name for e in spans})
@@ -614,19 +686,15 @@ def profile(label: str, fn, unprofiled_s: float | None = None) -> dict:
     microseconds of each of the port's kernels, by kernel function
     ("kernels"), the number of device activities ("activities") and the
     busy and wall milliseconds."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
+    def run():
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    if not spans:
-        raise AssertionError(f"{label}: the profiler saw no device activity")
+        return (time.perf_counter() - t0) * 1e6
+
+    # fn is run again only where its first profile lost the device's records
+    wall_us, events = _profiled(label, run)
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events]
     busy, end = 0.0, float("-inf")
     by_name: dict[str, float] = {}
     for s, e, name in spans:
@@ -1581,6 +1649,221 @@ def phase_dataset(card: str, dirs: dict, root: str) -> dict:
     return {"dataset_train": train_counts, "dataset_report": report_counts}
 
 
+def rsl_args(log_dir: str, iters: int, *extra: str) -> list:
+    """train_rsl's arguments at the CLI's full width on the drone."""
+    return ["--task", "drone_velocity", "--num_envs", str(RSL_ENVS),
+            "--num_steps_per_env", str(RSL_STEPS),
+            "--hidden", *map(str, RSL_HIDDEN), "--max_iterations", str(iters),
+            "--log_dir", log_dir, "--save_interval", "1", *extra]
+
+
+def check_rsl_logged(card: str, logged: list, cfg) -> None:
+    """Every metric finite, the learning rate in [min_lr, max_lr]; prints
+    each iteration's rates."""
+    steps = RSL_ENVS * RSL_STEPS
+    for rec in logged:
+        for k in on_policy_runner.METRIC_KEYS:
+            if not math.isfinite(rec[k]):
+                raise AssertionError(f"rsl: non-finite {k} at iteration "
+                                     f"{rec['step']}")
+        # the learning rate is float32, clamped to the bounds in float32
+        if not (np.float32(cfg.min_lr) <= np.float32(rec["learning_rate"])
+                <= np.float32(cfg.max_lr)):
+            raise AssertionError(f"rsl: learning rate {rec['learning_rate']} "
+                                 f"at iteration {rec['step']}")
+        print(f"rsl: iteration {rec['step']}: {rec['time/iter_seconds']:.4f} s "
+              f"= rollout + GAE {rec['time/rollout']:.4f} s "
+              f"({steps / rec['time/rollout']:.1f} env-steps/s) + update "
+              f"{rec['time/update']:.4f} s (+ fetch); {rec['time/fps']:.1f} "
+              f"env-steps/s; reward {rec['mean_reward']:+.5f}, kl "
+              f"{rec['mean_kl']:.5f}, lr {rec['learning_rate']:.6g} [{card}]")
+
+
+def resume_rsl(card: str, log_dir: str, first) -> None:
+    """train_rsl --resume to RSL_ITERS + 1: raises unless it starts at
+    iteration RSL_ITERS from the parameters and optimizer state saved
+    there, which are the first run's."""
+    at_start = {}
+    learn = on_policy_runner.OnPolicyRunner.learn
+
+    def spy(runner, *args, **kw):
+        at_start.update(iteration=runner.iteration, snap=snapshot(runner, []),
+                        lr=runner.opt_state.learning_rate.clone())
+        return learn(runner, *args, **kw)
+
+    on_policy_runner.OnPolicyRunner.learn = spy
+    try:
+        resumed = train_rsl.main(rsl_args(log_dir, RSL_ITERS + 1, "--resume"))
+    finally:
+        on_policy_runner.OnPolicyRunner.learn = learn
+    if at_start["iteration"] != RSL_ITERS or resumed.iteration != RSL_ITERS + 1:
+        raise AssertionError(f"rsl: resumed at {at_start['iteration']}, "
+                             f"ended at {resumed.iteration}")
+    diff = first_difference(snapshot(first, []), at_start["snap"])
+    saved = torch.load(os.path.join(log_dir, f"model_{RSL_ITERS}.pt"),
+                       map_location="cuda", weights_only=True)
+    if diff or not torch.equal(at_start["lr"], first.opt_state.learning_rate) \
+            or any(not torch.equal(v, saved["params"][k])
+                   for k, v in at_start["snap"]["variables"].items()):
+        raise AssertionError(f"rsl: the resumed runner differs from "
+                             f"model_{RSL_ITERS}.pt ({diff})")
+    if [r["step"] for r in read_logged(log_dir)] != list(range(1, RSL_ITERS + 2)):
+        raise AssertionError("rsl: the resumed run's log")
+    print(f"rsl: --resume loaded model_{RSL_ITERS}.pt: iteration {RSL_ITERS}, "
+          "the saved parameters and optimizer state bit for bit; ran to "
+          f"{resumed.iteration} [{card}]")
+
+
+def reproduce_rsl(card: str) -> None:
+    """Two OnPolicyRunners from seed 1 at phase 11's width end 2 iterations
+    with the same parameters, optimizer state and logged metrics (but
+    time/*), bit for bit."""
+    snaps = []
+    for _ in range(2):
+        log_dir = tempfile.mkdtemp(prefix="chip_smoke_rsl_repro_")
+        try:
+            runner = on_policy_runner.OnPolicyRunner(
+                DroneRobot(), ppoc.ContinuousPPOConfig(),
+                on_policy_runner.OnPolicyRunnerConfig(
+                    num_steps_per_env=RSL_STEPS, save_interval=0),
+                num_envs=RSL_ENVS, log_dir=log_dir, seed=1,
+                actor_hidden=RSL_HIDDEN, critic_hidden=RSL_HIDDEN)
+            runner.learn(2, log=True)
+            snaps.append(snapshot(runner, read_logged(log_dir)))
+        finally:
+            shutil.rmtree(log_dir, ignore_errors=True)
+    diff = first_difference(*snaps)
+    if diff:
+        raise AssertionError(f"rsl: a second OnPolicyRunner from seed 1 "
+                             f"differs first in {diff}")
+    print("rsl: two OnPolicyRunners from seed 1 end 2 iterations with the "
+          "same parameters, optimizer state and logged metrics (but time/*), "
+          f"bit for bit [{card}]")
+
+
+def drone_on_cpu(card: str, runner) -> None:
+    """RSL_CPU_ENVS drones from a fresh spawn on the card, copied to the
+    CPU, stepped RSL_CPU_STEPS times on both with the same actions, drawn
+    uniformly in +-0.3 as tests/test_torch_drone.py's are (a policy of a
+    few iterations flips most drones within 8 steps).  At each step the
+    CPU's copy of the trained policy must give the card's mean actions on
+    the same observations within MLP_RTOL/ATOL, and the CPU's drones the
+    card's step outputs and states within DRONE_RTOL/ATOL.  A drone whose
+    episode ends is re-spawned from its device's generator, which draws
+    differently on the two devices, so it leaves the comparison after that
+    step's outputs; three quarters of the drones must stay in it to the
+    end."""
+    env = runner.env
+    cpu_env = DroneRobot(env.cfg, device="cpu")
+    cpu_model = GaussianActorCritic(env.obs_dim, env.num_actions, RSL_HIDDEN,
+                                    RSL_HIDDEN, device="cpu")
+    cpu_model.load_state_dict(runner.model.state_dict())
+    policy = runner.get_inference_policy()
+    state, out = env.reset(RSL_CPU_ENVS,
+                           torch.Generator(device="cuda").manual_seed(5))
+    cs = state._replace(**{f: getattr(state, f).cpu() for f in state._fields
+                           if f != "rng"},
+                        rng=torch.Generator().manual_seed(5).get_state())
+    co_obs = out.obs.cpu()
+    live = torch.ones(RSL_CPU_ENVS, dtype=torch.bool)
+    worst = {"actions": 0.0, "state": 0.0, "obs": 0.0, "reward": 0.0}
+
+    def held(label, got, want, rtol, atol, key):
+        got, want = got[live], want.cpu()[live]
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=rtol,
+                                   atol=atol, err_msg=f"rsl: {label}")
+        worst[key] = max(worst[key], float((got - want).abs().max()))
+
+    draws = torch.Generator().manual_seed(6)
+    for k in range(RSL_CPU_STEPS):
+        with torch.no_grad():
+            held(f"the policy on the CPU at step {k}", cpu_model(co_obs).mean,
+                 policy(out.obs), MLP_RTOL, MLP_ATOL, "actions")
+        actions = 0.6 * torch.rand(RSL_CPU_ENVS, env.num_actions,
+                                   generator=draws) - 0.3
+        state, out = env.step(state, actions.cuda())
+        cs, co = cpu_env.step(cs, actions)
+        if not torch.equal(co.done[live], out.done.cpu()[live]):
+            raise AssertionError(f"rsl: done differs at step {k}")
+        held(f"obs at step {k}", co.obs, out.obs, DRONE_RTOL, DRONE_ATOL, "obs")
+        held(f"reward at step {k}", co.reward, out.reward, DRONE_RTOL, 1e-6,
+             "reward")
+        live &= ~co.done
+        for f in ("pos", "quat", "lin_vel", "ang_vel", "rotor_vel",
+                  "ep_reward"):
+            held(f"{f} at step {k}", getattr(cs, f), getattr(state, f),
+                 DRONE_RTOL, DRONE_ATOL, "state")
+        co_obs = co.obs
+    if live.sum() < 3 * RSL_CPU_ENVS // 4:
+        raise AssertionError(f"rsl: only {int(live.sum())} drones flew "
+                             f"{RSL_CPU_STEPS} steps")
+    print(f"rsl: {RSL_CPU_ENVS} drones x {RSL_CPU_STEPS} steps on the CPU from "
+          f"the card's state agree with the card ({int(live.sum())} flew all "
+          "steps): max abs differences "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + f" [{card}]")
+
+
+def profile_rsl(card: str, runner) -> None:
+    """One iteration of the runner at full width (rollout, GAE, update),
+    timed and then under the profiler: the device-busy share and device
+    activities per env step (one step of all RSL_ENVS drones)."""
+    state, out = runner.env.reset(RSL_ENVS, runner.generator)
+    obs = out.obs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, obs, metrics = runner._train_iteration(state, obs)
+    metrics.tolist()
+    secs = time.perf_counter() - t0
+    res = profile(f"rsl: an iteration ({RSL_STEPS} steps of {RSL_ENVS} drones, "
+                  "the update)", lambda: runner._train_iteration(state, obs)[2]
+                  .tolist(), secs)
+    print(f"rsl: {res['activities'] / RSL_STEPS:.1f} device activities per env "
+          f"step, device busy {res['busy_ms']:.3f} ms of the {secs * 1e3:.3f} ms "
+          f"unprofiled iteration [{card}]")
+    rollout_res = profile(f"rsl: a rollout ({RSL_STEPS} steps)",
+                          lambda: runner._rollout(state, obs))
+    print(f"rsl: rollout {rollout_res['activities'] / RSL_STEPS:.1f} device "
+          f"activities and {rollout_res['busy_ms'] / RSL_STEPS:.3f} ms device "
+          f"time per env step [{card}]")
+
+
+def phase_rsl(card: str) -> dict:
+    """train_rsl on the drone at the CLI's full width, a resume, a second
+    runner from the seed, the CPU against the card and the profile;
+    returns each kernel's launches in the training run (all 0)."""
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_rsl_")
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = train_rsl.main(rsl_args(log_dir, RSL_ITERS))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launches()
+        peak = torch.cuda.max_memory_allocated()
+        if any(counts.values()):
+            raise AssertionError(f"rsl launched {counts}, expected none")
+        cfg = first.alg_cfg
+        assert (cfg.num_learning_epochs, cfg.num_mini_batches, cfg.desired_kl,
+                first.device.type) == (5, 4, 0.01, "cuda")
+        logged = read_logged(log_dir)
+        if [r["step"] for r in logged] != list(range(1, RSL_ITERS + 1)):
+            raise AssertionError("rsl: logged iterations")
+        check_rsl_logged(card, logged, cfg)
+        print(f"rsl: train_rsl {RSL_ITERS} iterations of {RSL_ENVS} envs x "
+              f"{RSL_STEPS} steps, update 5 x 4 minibatches of "
+              f"{RSL_ENVS * RSL_STEPS // 4} rows, in {secs:.3f} s with the "
+              f"saves; peak memory {peak / 2 ** 30:.3f} GiB [{card}]")
+        resume_rsl(card, log_dir, first)
+        reproduce_rsl(card)
+        drone_on_cpu(card, first)
+        profile_rsl(card, first)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    return counts
+
+
 def phase_cache_pairs(card: str, scenes, pairs: int) -> None:
     """The full-size eval with the init-view cache (zbuf_impl=pallas) and
     without it (mxu), the same kernels on both, in interleaved pairs."""
@@ -1639,12 +1922,13 @@ def main() -> None:
         report_counts, _ = phase_report(card, run_dir)
         dda_counts = phase_dda(card, rollout_scenes)
         dataset_counts = phase_dataset(card, dirs, data_root)
+        rsl_counts = phase_rsl(card)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
         shutil.rmtree(data_root, ignore_errors=True)
     by_path = {"rollout": rollout_counts, "eval": eval_counts,
                "train": train_counts, "report": report_counts, **dda_counts,
-               **dataset_counts}
+               **dataset_counts, "rsl": rsl_counts}
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         kernels.append({
@@ -1661,6 +1945,9 @@ def main() -> None:
             # phase 3 at the DDA step's and the converted scenes' shapes
             **{path: t for path, t in timing[name].items()
                if path not in ("eval", "rollout")}})
+    print(f"profiler: at most {PADS_LOST['leading']} leading and "
+          f"{PADS_LOST['trailing']} trailing of the {PROFILE_PADS} pads on "
+          "each side of a profiled run lost")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the device "
           "check")
     print(card_line())

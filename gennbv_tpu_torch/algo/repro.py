@@ -1,7 +1,8 @@
-"""Whether two trainings from one seed ended the same: a Runner's state
-and logged metrics, copied, and the first difference between two such
-copies.  ``chip_smoke.py`` phase 7 and ``tests/test_torch_card.py`` train
-two Runners from one seed and require no difference."""
+"""Whether two trainings from one seed ended the same: a Runner's (or an
+OnPolicyRunner's) state and logged metrics, copied, and the first
+difference between two such copies.  ``chip_smoke.py`` phases 7 and 11
+and ``tests/test_torch_card.py`` train two runners from one seed and
+require no difference."""
 from __future__ import annotations
 
 import itertools
@@ -18,8 +19,8 @@ def read_logged(log_dir: str) -> list:
 
 
 def snapshot(runner, logged: list) -> dict:
-    """A runner's parameters and BatchNorm statistics, Adam state and the
-    metrics it logged, copied."""
+    """A runner's parameters (and BatchNorm statistics), optimizer moments
+    and count, and the metrics it logged, copied."""
     state = runner.opt_state
     return {"variables": {k: v.clone() for k, v in runner.variables().items()},
             "mu": {k: v.clone() for k, v in state.mu.items()},

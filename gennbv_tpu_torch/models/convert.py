@@ -12,6 +12,9 @@ collections.  Imports no JAX.
   running_mean/running_var.
 
 ``jax_opt_state_to_port`` carries optax's Adam state over the same way.
+``gaussian_ac_to_state_dict`` and ``jax_continuous_opt_state_to_port`` do
+the same for ``GaussianActorCritic`` and the continuous learner's
+optimizer (``algo/ppo_continuous.py``).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from gennbv_tpu_torch.algo.ppo import AdamState
+from gennbv_tpu_torch.algo.ppo_continuous import ContinuousOptState
 
 
 def _t(x: Any) -> torch.Tensor:
@@ -88,3 +92,50 @@ def jax_opt_state_to_port(opt_state: Any) -> AdamState:
     if any(c != count for c in counts):
         raise ValueError(f"schedule counts {counts} differ from Adam's {count}")
     return AdamState(_params(adam.mu), _params(adam.nu), count)
+
+
+def gaussian_ac_to_state_dict(params: Mapping[str, Any]
+                              ) -> dict[str, torch.Tensor]:
+    """The ``params`` of ``gennbv_tpu.models.actor_critic.
+    GaussianActorCritic`` (or a tree shaped like them: Adam's moments) ->
+    the port's ``GaussianActorCritic`` state_dict: each Dense layer keeps
+    its name, its kernel transposed; ``log_std`` as it is."""
+    sd: dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        if name == "log_std":
+            sd[name] = _t(p)
+        else:
+            sd[f"{name}.weight"] = _t(p["kernel"]).T.contiguous()
+            sd[f"{name}.bias"] = _t(p["bias"])
+    return sd
+
+
+def jax_continuous_opt_state_to_port(opt_state: Any,
+                                     device: torch.device | str = "cpu"
+                                     ) -> ContinuousOptState:
+    """optax's state of ``ppo_continuous.make_optimizer``'s chain
+    (``clip_by_global_norm``, then ``inject_hyperparams(adam | rmsprop)``)
+    -> the port's ``ContinuousOptState`` on `device`: the moments take the
+    parameters' mapping, the injected learning rate stays float32, and the
+    count is the injected one, which Adam's own count must equal."""
+    inject = next((s for s in opt_state
+                   if "hyperparams" in getattr(s, "_fields", ())), None)
+    if inject is None:
+        raise ValueError("no inject_hyperparams state in the optax state")
+    count = int(np.asarray(inject.count))
+    lr = torch.tensor(np.asarray(inject.hyperparams["learning_rate"],
+                                 np.float32), device=device)
+    inner = inject.inner_state[0]
+    if "mu" in inner._fields:
+        if int(np.asarray(inner.count)) != count:
+            raise ValueError(f"Adam's count {int(np.asarray(inner.count))} "
+                             f"differs from the injected count {count}")
+        mu = gaussian_ac_to_state_dict(inner.mu)
+    else:
+        mu = {}
+    nu = gaussian_ac_to_state_dict(inner.nu)
+
+    def dev(d):
+        return {k: v.to(device) for k, v in d.items()}
+
+    return ContinuousOptState(dev(mu), dev(nu), count, lr)

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 
@@ -49,6 +50,12 @@ def deterministic_fp32() -> None:
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE_CONFIG)
+
+
+def f32(x: float) -> float:
+    """x rounded to float32, as a Python float (exact in float32): what a
+    Python constant becomes in JAX's float32 arithmetic (a weak type)."""
+    return float(np.float32(x))
 
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -23,34 +23,6 @@ import os
 import sys
 
 
-def profile_calls(fn, calls: int) -> tuple[float, float, list]:
-    """Runs fn `calls` times back to back under torch.profiler, after one
-    call outside it; returns the device activities a call, their device ms
-    a call, and their names."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        # a device activity of its own opens the profiled window: the
-        # calls' activities are those that start inside the "calls" range
-        torch.ones(1, device="cuda")
-        torch.cuda.synchronize()
-        with torch.profiler.record_function("calls"):
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-    events = prof.events()
-    window = next(e.time_range for e in events if e.name == "calls")
-    spans = [e for e in events if e.device_type == DeviceType.CUDA
-             and e.time_range.start >= window.start and e.name != "calls"]
-    return (len(spans) / calls,
-            sum(e.time_range.end - e.time_range.start for e in spans) / calls / 1e3,
-            sorted({e.name[:80] for e in spans}))
-
-
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tree", default=os.path.dirname(os.path.dirname(
@@ -83,12 +55,13 @@ def main() -> None:
             "gather_image": lambda: gather.gather_image(img, vi, ui),
         }
         for name, fn in calls.items():
-            runs = [profile_calls(fn, args.calls) for _ in range(3)]
+            runs = [chip_smoke.profile_calls(fn, args.calls) for _ in range(3)]
             out.setdefault(name, {})[path] = {
                 "launches_per_call": runs[0][0],
-                "device_ms": [r[1] for r in runs], "names": runs[0][2]}
+                "device_ms": [r[1] for r in runs],
+                "names": sorted(n[:80] for n in runs[0][2])}
             print(f"{path}: {name}: {runs[0][0]:g} device activities a call "
-                  f"({', '.join(runs[0][2])}); device ms a call "
+                  f"({', '.join(out[name][path]['names'])}); device ms a call "
                   + " / ".join(f"{r[1]:.5f}" for r in runs))
     print(json.dumps({"tree": tree, "wrappers": out}))
 

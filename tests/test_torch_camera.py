@@ -1,4 +1,5 @@
 """The port's camera model against ``gennbv_tpu/ops/camera.py``."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import math
 
 import jax

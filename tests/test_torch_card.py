@@ -8,6 +8,7 @@ it without the conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_card.py
 """
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 
 import numpy as np
@@ -435,3 +436,116 @@ def test_dda_env_on_card_matches_cpu(cuda, carve_mode):
                                         f"step {t}")
         host = cpu.step(host[0], acts[t, :2])
     assert card[1].coverage.max() > 0
+
+
+# ---------------------------------------------------------------------------
+# the continuous-control path (the drone, Gaussian PPO, the on-policy runner)
+
+
+def test_drone_steps_on_card_match_cpu(cuda):
+    """Eight control steps of 64 drones from one state with the same
+    actions on the card and on the CPU, with pushes off and no env done
+    (so the state's generator, which differs between the devices, only
+    reaches masked-out branches): tests/test_torch_drone.py's tolerance
+    against JAX, 1e-5 relative and absolute."""
+    from gennbv_tpu_torch.env.drone_robot import (DroneDomainRand, DroneRobot,
+                                                  DroneRobotConfig)
+    cfg = DroneRobotConfig(domain_rand=DroneDomainRand(push_robots=False))
+    cpu, card = DroneRobot(cfg, device="cpu"), DroneRobot(cfg, device="cuda")
+    cs, co = cpu.reset(64, torch.Generator().manual_seed(0))
+    gs = cs._replace(**{f: getattr(cs, f).cuda() for f in cs._fields
+                        if f != "rng"},
+                     rng=torch.Generator(device="cuda").manual_seed(0).get_state())
+    acts = torch.rand(8, 64, 4, generator=torch.Generator().manual_seed(1)) - 0.5
+    for k in range(8):
+        cs, co = cpu.step(cs, acts[k] * 0.6)
+        gs, go = card.step(gs, acts[k].cuda() * 0.6)
+        assert not co.done.any() and not go.done.any()
+        for f in ("pos", "quat", "lin_vel", "ang_vel", "rotor_vel", "ep_reward"):
+            np.testing.assert_allclose(getattr(gs, f).cpu().numpy(),
+                                       getattr(cs, f).numpy(), rtol=1e-5,
+                                       atol=1e-5, err_msg=f"{f} at step {k}")
+        np.testing.assert_allclose(go.obs.cpu().numpy(), co.obs.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(go.reward.cpu().numpy(), co.reward.numpy(),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_continuous_update_on_card_matches_cpu(cuda):
+    """One ppo_continuous update (5 epochs x 4 minibatches, adaptive KL) at
+    a narrow width on the card and on the CPU from the same weights, data
+    and minibatches: tests/test_torch_continuous.py's tolerances against
+    JAX, and the same learning rate (float32 arithmetic on the same
+    decisions)."""
+    from gennbv_tpu_torch.algo import ppo_continuous as ppoc
+    from gennbv_tpu_torch.models import gaussian
+    from gennbv_tpu_torch.models.actor_critic import GaussianActorCritic
+
+    g = torch.Generator().manual_seed(0)
+    cpu = GaussianActorCritic(6, 3, (32, 32), (32, 32), generator=g, device="cpu")
+    card = GaussianActorCritic(6, 3, (32, 32), (32, 32), device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    m = 128
+    obs = torch.randn(m, 6, generator=g)
+    with torch.no_grad():
+        out = cpu(obs)
+        acts = gaussian.sample(out.mean, out.log_std, g)
+        logp = gaussian.log_prob(out.mean, out.log_std, acts)
+    old_mean = out.mean + 1e-2 * torch.randn(m, 3, generator=g)
+    adv = torch.randn(m, generator=g)
+    adv = (adv - adv.mean()) / adv.std(correction=0)
+    data = (obs, None, acts, logp, out.value, old_mean,
+            out.log_std.detach().clone(), adv,
+            out.value + torch.randn(m, generator=g))
+    cfg = ppoc.ContinuousPPOConfig(learning_rate=1e-3)
+    idx = ppoc.minibatch_indices(cfg, m, torch.Generator().manual_seed(1))
+    results = []
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        opt = ppoc.make_optimizer(cfg)
+        state, metrics = ppoc.update(
+            model, opt, cfg, opt.init(model),
+            *(None if x is None else x.to(dev) for x in data),
+            indices=idx.to(dev))
+        results.append((model.state_dict(), state, metrics))
+    (sd_c, st_c, m_c), (sd_g, st_g, m_g) = results
+    for k, v in sd_c.items():
+        assert sd_g[k].is_cuda
+        np.testing.assert_allclose(sd_g[k].cpu().numpy(), v.numpy(), rtol=0,
+                                   atol=1e-6, err_msg=k)
+    assert st_c.count == st_g.count == 20
+    assert float(st_c.learning_rate) == float(st_g.learning_rate)
+    for moment, rtol, scale in (("mu", 1e-4, 1e-5), ("nu", 2e-4, 2e-5)):
+        for k, v in getattr(st_c, moment).items():
+            w = v.numpy()
+            np.testing.assert_allclose(
+                getattr(st_g, moment)[k].cpu().numpy(), w, rtol=rtol,
+                atol=scale * float(np.abs(w).max()), err_msg=f"{moment} {k}")
+    np.testing.assert_allclose([float(x) for x in m_g], [float(x) for x in m_c],
+                               rtol=1e-5, atol=1e-7)
+
+
+def test_continuous_training_reproduces_itself(cuda, tmp_path):
+    """Two OnPolicyRunners from one seed on the drone, 2 iterations each
+    at 256 envs: the same parameters, optimizer state and logged metrics
+    (but time/*), bit for bit."""
+    from gennbv_tpu_torch.algo import ppo_continuous as ppoc
+    from gennbv_tpu_torch.algo.on_policy_runner import (OnPolicyRunner,
+                                                        OnPolicyRunnerConfig)
+    from gennbv_tpu_torch.algo.repro import (first_difference, read_logged,
+                                             snapshot)
+    from gennbv_tpu_torch.env.drone_robot import DroneRobot
+
+    snaps = []
+    for run in range(2):
+        log_dir = str(tmp_path / f"run{run}")
+        runner = OnPolicyRunner(
+            DroneRobot(device="cuda"), ppoc.ContinuousPPOConfig(),
+            OnPolicyRunnerConfig(num_steps_per_env=24, save_interval=0),
+            num_envs=256, log_dir=log_dir, seed=1, actor_hidden=(64, 32),
+            critic_hidden=(64, 32))
+        runner.learn(2, log=True)
+        torch.cuda.synchronize()
+        snaps.append(snapshot(runner, read_logged(log_dir)))
+    assert [rec["step"] for rec in snaps[0]["logged"]] == [1, 2]
+    assert snaps[0]["count"] == 40
+    assert first_difference(*snaps) is None

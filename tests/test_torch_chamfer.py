@@ -7,6 +7,7 @@ rounded as XLA rounds it).  Means that the JAX package sums on its device
 in XLA's order (``sampling_floor``, the chamfer terms and the accuracy's
 GT sampling floor) are held to 1e-6 relative; the other five accuracy
 outputs, whose means both packages take on the host, are exact."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -5,6 +5,7 @@ meshes made here by the native mesher, a short env episode on the
 converted scenes against the JAX env, and where the voxelizer is built.
 Scene arrays and converted arrays are exact; the episode is held as
 tests/test_torch_dda_env.py holds the env (grayscale frames to 1e-4)."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import hashlib
 import os
 

@@ -8,6 +8,7 @@ Tolerances: every ``StepOutput`` and ``EnvState`` field is exact, except
 the grayscale frames (in ``obs`` and ``rgb_buf``), held to 1e-4 as the
 mapping golden holds them (the antialiased resize).  The Bresenham ops
 are integer arithmetic and exact."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 
 import jax

@@ -3,6 +3,7 @@ a replay env fed the frames of the visited poses equals the DDA env bit
 for bit (both render with the same eager function), nearest-pose lookup,
 the host-callback source, the missing-source refusal, and the replay env
 against the JAX replay env on one bank (exact: the same frames go in)."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 
 import jax.numpy as jnp

@@ -5,6 +5,7 @@ fixed cuBLAS workspace), and no configuration key turns them off: the JAX
 reference is deterministic by construction and has no such key.  The card
 itself is held to it by tests/test_torch_card.py and chip_smoke.py phase 7
 (two Runners from one seed, bit-equal)."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import os
 
 import numpy as np

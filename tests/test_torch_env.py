@@ -1,6 +1,7 @@
 """The port's env end to end: the committed mapping golden, and a direct
 run beside the JAX env that goes through collisions, timeouts and
 auto-resets."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 import os
 

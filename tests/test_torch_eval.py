@@ -7,6 +7,7 @@ Pose history, the tri-class grid, rewards, dones, timeouts, collisions and
 coverage are exact; grayscale frames are held to 1e-4 (the antialiased
 resize, as in the mapping golden); eval metrics to 1e-6, and with the
 accuracy scan exactly, but for the GT sampling floor (1e-6 relative)."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 
 import jax

@@ -1,6 +1,7 @@
 """``gennbv_tpu_torch/ops/fp32.py`` reproduces the float32 rounding of the
 JAX reference's jitted CPU code, helper by helper.  If a jax upgrade
 changes XLA's choices, this file says which helper to revisit."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ against the JAX mxu path, whose rounding the port follows, and held to
 rtol 3e-7 against the JAX pallas path: the JAX kernel's decode
 ``zmin + frac * zrange`` is fused differently by XLA and may differ from
 its own mxu path by one ulp (tests/test_pallas_splat.py)."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

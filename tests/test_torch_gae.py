@@ -1,5 +1,6 @@
 """The port's GAE (``gennbv_tpu_torch/algo/gae.py``) against the JAX
 package's ``compute_gae`` on the same seeded inputs."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -2,6 +2,7 @@
 (``pallas_gather.gather_image``, run in interpret mode off a TPU) and its
 one-hot GEMM form (``mxu.gather_image(exact=False)``).  All are bf16
 lookups, so they must agree bit for bit."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

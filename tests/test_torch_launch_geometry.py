@@ -5,6 +5,7 @@ one a CTA of a thread-block cluster; the hit scatter (``ops/scatter.py``)
 holds the env's whole G^3 grid of flags in one CTA; the image gather
 (``ops/gather.py``) runs a 1-D grid of threads that take vectors of 4
 queries where the layout allows, and single queries where it does not."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 import torch
 

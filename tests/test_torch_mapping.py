@@ -3,6 +3,7 @@ inputs: voxelization, hit scatter, z-test carve, grid update, coverage and
 the collision test.  All are exact (indices, 0/1 grids, comparisons), so
 they must agree bit for bit; the JAX functions run under jit(vmap(...))
 as in the JAX env step."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

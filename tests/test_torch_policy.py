@@ -1,5 +1,6 @@
 """The port's policy against the JAX package's, with the JAX variables
 carried over by ``models/convert.py``."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -2,6 +2,7 @@
 (``gennbv_tpu_torch/ops/render.py``, ``backproject.py``) against the JAX
 package's, as the eval's accuracy scan runs them: jitted, over a batch of
 envs.  Hit flags, depths, points and validity are exact."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

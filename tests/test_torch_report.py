@@ -9,6 +9,7 @@ the port's spec constants for the test (``eval_env_config`` and post_run
 read them when called).  The report is rounded as the JAX report is; its
 numbers equal the JAX evaluate's rounded alike (the GT sampling floor to
 1e-3, its last rounded digit)."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 import json
 import os

@@ -1,6 +1,7 @@
 """The whole slice: the JAX ``rollout.collect`` (env + policy) at a small
 size, replayed through the port.  The RNG streams differ, so the port
 takes the JAX run's actions; everything else it computes itself."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import jax
 import numpy as np
 import torch

@@ -2,6 +2,7 @@
 (``pallas_scatter.scatter_cells_any``, run in interpret mode off a TPU) and
 its one-hot GEMM form (``mxu.scatter_cells_any``).  All produce a {0, 1}
 grid, so they must agree bit for bit."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

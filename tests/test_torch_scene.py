@@ -1,4 +1,5 @@
 """The port's procedural scenes are bit-identical to the JAX package's."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

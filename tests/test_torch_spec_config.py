@@ -1,5 +1,6 @@
 """The PyTorch port's spec and config against the JAX package's, and the
 port's independence from jax."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 import os
 import subprocess
@@ -78,19 +79,30 @@ def test_bad_impl_name_rejected():
         pt_config.RendererConfig(gather_impl="fused")
 
 
+# the modules of the continuous-control slice, each the JAX package's
+# module of the same path
+CONTINUOUS_MODULES = (
+    "utils.normalizer", "env.synthetic", "utils.env_checker", "env.wrappers",
+    "utils.math", "models.gaussian", "models.actor_critic",
+    "algo.ppo_continuous", "algo.on_policy_runner", "env.drone_robot",
+    "registry", "train.train_rsl")
+
+
 def test_package_imports_without_jax():
-    """Every module of the port imports with jax blocked."""
+    """Every module of the port imports with jax, flax, optax and the JAX
+    package blocked."""
     code = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['flax'] = None\n"
-        "sys.modules['optax'] = None\n"
+        "for blocked in ('jax', 'flax', 'optax', 'gennbv_tpu'):\n"
+        "    sys.modules[blocked] = None\n"
         "import pkgutil, importlib, gennbv_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("
         "gennbv_tpu_torch.__path__, 'gennbv_tpu_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert 'gennbv_tpu_torch.env.recon_env' in names, names\n"
+        f"for m in {CONTINUOUS_MODULES!r}:\n"
+        "    assert 'gennbv_tpu_torch.' + m in names, m\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -100,10 +112,25 @@ def test_package_imports_without_jax():
     assert int(res.stdout.strip()) >= 15
 
 
+def test_continuous_modules_mirror_the_jax_package():
+    import importlib
+    for m in CONTINUOUS_MODULES:
+        assert os.path.exists(os.path.join(REPO, "gennbv_tpu", *m.split("."))
+                              + ".py"), m
+        importlib.import_module(f"gennbv_tpu_torch.{m}")
+
+
 @pytest.mark.parametrize("entry", ["env.scene.make_scenes",
                                    "env.scene.generate_procedural",
                                    "models.policy.ActorCriticPolicy",
-                                   "models.encoder.HybridEncoder"])
+                                   "models.encoder.HybridEncoder",
+                                   "env.drone_robot.DroneRobot",
+                                   "env.synthetic.PointGoalEnv",
+                                   "env.synthetic.IdentityEnvMultiDiscrete",
+                                   "env.synthetic.GoalPointEnv",
+                                   "models.actor_critic.GaussianActorCritic",
+                                   "utils.normalizer.init",
+                                   "registry.make_env"])
 def test_entry_points_build_on_the_card_by_default(entry):
     """The port's entry points run on the card unless the caller asks for
     the CPU (the CPU tests pass device="cpu")."""

@@ -4,6 +4,7 @@ default ``zbuf_impl="mxu"`` path.
 The JAX functions run under ``jit(vmap(...))``, as inside the JAX env
 step: that is where XLA contracts ``zmin + frac * zrange`` into one
 multiply-add, which the port reproduces."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import math
 
 import jax

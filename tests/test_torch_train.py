@@ -2,6 +2,7 @@
 -> PPO update) replayed through the port, then the port's Runner, its
 checkpoints, logger, profiling and the train CLIs on the CPU (the
 Runner tests of tests/test_runner.py, without its multi-device ones)."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 import json
 import os

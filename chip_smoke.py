@@ -116,6 +116,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    with its rollout and update seconds, the device-busy share and device
    activities per env step of an iteration under torch.profiler, and
    peak memory.
+12. the legged robots, rough terrain, the recurrent family and the
+   terrain scenes, each part's seconds printed:
+   a. train_rsl.main --task a1_velocity (the CLI's default task) at phase
+      11's width, 3 iterations then --resume to 4, as phase 11: finite
+      metrics, the lr in range, the resume bit for bit, no kernel
+      launched, two OnPolicyRunners from one seed bit-equal, and 256
+      robots stepped 8 times on the CPU from the card's state (each step
+      from a copy of the card's state before it) within
+      tests/test_torch_legged.py's tolerance with equal contact, knee and
+      done masks; prints each iteration's env-steps/s with its rollout and
+      update seconds, the device activities and busy share of a rollout
+      under torch.profiler, and peak memory;
+   b. one iteration each of anymal_b_velocity, anymal_c_velocity and
+      cassie_velocity at the same width: finite metrics, no kernel;
+   c. a rough-terrain A1 with measure_heights (obs 235): the hash and
+      the heights on the card against the CPU within the circular bound
+      (CARD_HASH_BOUND), and 256 robots stepped on the card 8 times with
+      the CPU's observation of each step's state held to the card's (the
+      height grid to the bound);
+   d. train_rsl.main --task a1_velocity --recurrent at 4,096 envs, 2
+      iterations: finite metrics, lr in range, no kernel launched, two
+      RecurrentOnPolicyRunners from one seed bit-equal, and
+      export_recurrent_policy -> load_exported_policy equal to the
+      runner's inference policy over 4 steps of carried hidden state;
+      prints each iteration's rollout and update seconds;
+   e. 256 terrain scenes (seed 0, R=64) through the flagship env on the
+      splat path (256 envs, 128x128), reset + 16 steps of the seeded
+      policy: each kernel launched exactly once a reset and a step,
+      finite coverage, envs 0-1 bit-equal to the CPU step by step (as
+      phase 9); prints Q, env-steps/s and peak memory.
 The meshes are converted before phase 3, which times the kernels at
 their Q.  The last two lines of stdout are the kernel summary with the card's name
 and power limit before them, then the result line
@@ -145,15 +175,19 @@ import torch
 from gennbv_tpu_torch import config, spec
 from gennbv_tpu_torch.algo import evaluation, gae, on_policy_runner, ppo, rollout
 from gennbv_tpu_torch.algo import ppo_continuous as ppoc
+from gennbv_tpu_torch.algo import ppo_recurrent
 from gennbv_tpu_torch.algo.repro import first_difference, read_logged, snapshot
 from gennbv_tpu_torch.algo.runner import _METRIC_KEYS, Runner
 from gennbv_tpu_torch.env import ReconEnv, make_scenes
 from gennbv_tpu_torch.env import scene as scene_lib
+from gennbv_tpu_torch.env import legged_robot
 from gennbv_tpu_torch.env.drone_robot import DroneRobot
+from gennbv_tpu_torch.env.legged_robot import LeggedRobot
 from gennbv_tpu_torch.env.depth_sources import (CallbackDepthSource,
                                                 ReplayBank,
                                                 ReplayDepthSource,
                                                 record_replay_bank)
+from gennbv_tpu_torch.models import actor_critic, gaussian
 from gennbv_tpu_torch.models.actor_critic import GaussianActorCritic
 from gennbv_tpu_torch.models.policy import ActorCriticPolicy
 from gennbv_tpu_torch.models import distributions
@@ -184,6 +218,25 @@ G = spec.GRID_SIZE                       # the 20^3 grid; the carve gathers G^3
 # drones and steps held to the CPU
 RSL_ITERS, RSL_ENVS, RSL_STEPS, RSL_HIDDEN = 3, 4096, 24, (512, 256, 128)
 RSL_CPU_ENVS, RSL_CPU_STEPS = 256, 8
+# phase 12: the default legged task and the other robots, the recurrent
+# run's iterations, and the terrain scenes and steps
+LEGGED_TASK = "a1_velocity"
+LEGGED_PROFILE_STEPS = 4
+LEGGED_ZOO = ("anymal_b_velocity", "anymal_c_velocity", "cassie_velocity")
+REC_ITERS = 2
+TERRAIN_SCENES, TERRAIN_STEPS = 256, 16
+# tests/test_torch_legged.py's tolerance of a control step from the same
+# state (of each field's largest magnitude), and the fields it holds
+LEGGED_SCALE_TOL = 1e-3
+LEGGED_FIELDS = ("pos", "quat", "lin_vel", "ang_vel", "q", "qd", "commands",
+                 "torques", "contact_forces", "foot_anchor", "feet_air_time",
+                 "ep_track", "ep_reward", "walked")
+# the rough terrain's hash frac(sin(a) * 43758.5453) on the card against
+# the CPU: CUDA's float32 sine is within 2 ulps (the CUDA math library's
+# documented accuracy), the CPU's within 1, so the sines differ by at
+# most 3 ulps of s (3 * 2^-24), which the gain turns into <= 7.9e-3, and
+# each side rounds the product (ulp 2^-8) once: 2^-7 + 2^-8 on the circle
+CARD_HASH_BOUND = 2.0 ** -7 + 2.0 ** -8
 # tests/test_torch_drone.py's tolerance of the drone's state and obs, and
 # tests/test_torch_continuous.py's of the MLP forward
 DRONE_RTOL, DRONE_ATOL = 1e-5, 1e-5
@@ -1360,14 +1413,15 @@ def _first_envs(x: torch.Tensor, k: int = CPU_ENVS) -> torch.Tensor:
     return x[:k].clone()
 
 
-def drive_dda(card: str, scenes, policy, carve_mode: str):
-    """Reset + DDA_STEPS steps of the 256-env DDA env with actions from
-    the policy, timed; returns (actions [T, N, 6], poses [N, T + 1, 6] of
-    each env's views, the first CPU_ENVS envs' (state, out) after reset
-    and each step, the env)."""
-    cfg = dda_config(carve_mode)
+def drive(card: str, label: str, cfg: config.EnvConfig, scenes, policy,
+          expect: dict, steps: int):
+    """Reset + `steps` steps of an N_ENVS env on the card with actions from
+    the policy, timed, each kernel launched `expect` times a reset and a
+    step; the outputs finite and the coverage in [0, 1], some above 0.
+    Returns (actions [T, N, 6], poses [N, T + 1, 6] of each env's views,
+    the first CPU_ENVS envs' (state, out) after reset and each step, the
+    env, each kernel's launches in the run)."""
     env = ReconEnv(cfg, scenes)
-    expect = dda_expect(carve_mode)
     gen = torch.Generator(device="cuda").manual_seed(5)
     env.reset(N_ENVS)                                 # warm-up
     torch.cuda.synchronize()
@@ -1377,16 +1431,16 @@ def drive_dda(card: str, scenes, policy, carve_mode: str):
     state, out = env.reset(N_ENVS)
     counts = launches()
     if counts != expect:
-        raise AssertionError(f"dda {carve_mode}: reset launched {counts}")
+        raise AssertionError(f"{label}: reset launched {counts}")
     keep = [tuple(type(x)(*map(_first_envs, x)) for x in (state, out))]
     # the obs opens with the pose history; its last pose is the step's view
     end = cfg.pose_buf_len * spec.ACTION_DIM
     poses, acts = [out.obs[:, end - spec.ACTION_DIM:end]], []
     with torch.no_grad():
-        for t in range(DDA_STEPS):
+        for t in range(steps):
             a, _, _ = policy.act(out.obs, gen)
             state, out = _step_counted(env, state, a, expect,
-                                       f"dda {carve_mode} step {t}")
+                                       f"{label} step {t}")
             acts.append(a)
             poses.append(out.obs[:, end - spec.ACTION_DIM:end])
             keep.append(tuple(type(x)(*map(_first_envs, x))
@@ -1396,16 +1450,23 @@ def drive_dda(card: str, scenes, policy, carve_mode: str):
     peak = torch.cuda.max_memory_allocated()
     for name, x in out._asdict().items():
         if x.is_floating_point() and not torch.isfinite(x).all():
-            raise AssertionError(f"dda {carve_mode}: non-finite {name}")
+            raise AssertionError(f"{label}: non-finite {name}")
     assert ((out.coverage >= 0) & (out.coverage <= 1)).all()
-    assert (out.coverage > 0).any(), "the cameras see the houses"
-    print(f"dda {carve_mode}: reset + {DDA_STEPS} steps x {N_ENVS} envs at "
-          f"{HW}x{HW}, R={RES} in {secs:.3f} s = "
-          f"{N_ENVS * (1 + DDA_STEPS) / secs:.1f} env-steps/s [{card}]; mean "
+    assert (out.coverage > 0).any(), "the cameras see the scenes"
+    print(f"{label}: reset + {steps} steps x {N_ENVS} envs at "
+          f"{cfg.camera.height}x{cfg.camera.width}, R={RES}, "
+          f"Q={scenes.surf_pts.shape[1]} in {secs:.3f} s = "
+          f"{N_ENVS * (1 + steps) / secs:.1f} env-steps/s [{card}]; mean "
           f"coverage at the last step {float(out.coverage.mean()):.4f}; "
           f"launches a step {expect}; peak memory {peak / 2 ** 30:.2f} GiB")
     return (torch.stack(acts), torch.stack(poses, 1), keep, env,
-            {k: v * (1 + DDA_STEPS) for k, v in expect.items()})
+            {k: v * (1 + steps) for k, v in expect.items()})
+
+
+def drive_dda(card: str, scenes, policy, carve_mode: str):
+    """Reset + DDA_STEPS steps of the 256-env DDA env (drive)."""
+    return drive(card, f"dda {carve_mode}", dda_config(carve_mode), scenes,
+                 policy, dda_expect(carve_mode), DDA_STEPS)
 
 
 def _cpu_scenes(scenes, k: int = CPU_ENVS):
@@ -1415,17 +1476,19 @@ def _cpu_scenes(scenes, k: int = CPU_ENVS):
         grid_res=scenes.grid_res, grid_size=scenes.grid_size)
 
 
-def check_dda_on_cpu(carve_mode: str, scenes, actions, keep) -> float:
+def check_on_cpu(label: str, cfg: config.EnvConfig, scenes, actions,
+                 keep) -> float:
     """The first CPU_ENVS envs through the port on the CPU with the card
-    run's actions: every step's outputs and states equal the card's."""
-    env = ReconEnv(dataclasses.replace(dda_config(carve_mode),
-                                       num_envs=CPU_ENVS), _cpu_scenes(scenes))
+    run's actions: every step's outputs and states equal the card's (the
+    grayscale frames within 1e-4); returns their largest difference."""
+    env = ReconEnv(dataclasses.replace(cfg, num_envs=CPU_ENVS),
+                   _cpu_scenes(scenes))
     state, out = env.reset(CPU_ENVS)
-    gray = _same_step(f"dda {carve_mode} reset, card vs CPU", keep[0],
-                      (state, out), 1e-4)
-    for t in range(DDA_STEPS):
+    gray = _same_step(f"{label} reset, card vs CPU", keep[0], (state, out),
+                      1e-4)
+    for t in range(actions.shape[0]):
         state, out = env.step(state, actions[t, :CPU_ENVS].cpu())
-        gray = max(gray, _same_step(f"dda {carve_mode} step {t}, card vs CPU",
+        gray = max(gray, _same_step(f"{label} step {t}, card vs CPU",
                                     keep[t + 1], (state, out), 1e-4))
     return gray
 
@@ -1468,7 +1531,8 @@ def phase_dda(card: str, scenes) -> dict:
         actions, poses, keep, env, counts[f"dda_{carve_mode}"] = drive_dda(
             card, scenes, policy, carve_mode)
         t0 = time.perf_counter()
-        gray = check_dda_on_cpu(carve_mode, scenes, actions, keep)
+        gray = check_on_cpu(f"dda {carve_mode}", dda_config(carve_mode),
+                            scenes, actions, keep)
         print(f"dda {carve_mode}: envs 0-{CPU_ENVS - 1} equal the port on the "
               f"CPU over reset + {DDA_STEPS} steps, every output and state "
               f"field bit for bit but the grayscale frames "
@@ -1649,37 +1713,41 @@ def phase_dataset(card: str, dirs: dict, root: str) -> dict:
     return {"dataset_train": train_counts, "dataset_report": report_counts}
 
 
-def rsl_args(log_dir: str, iters: int, *extra: str) -> list:
-    """train_rsl's arguments at the CLI's full width on the drone."""
-    return ["--task", "drone_velocity", "--num_envs", str(RSL_ENVS),
+def rsl_args(log_dir: str, iters: int, *extra: str,
+             task: str = "drone_velocity") -> list:
+    """train_rsl's arguments at the CLI's full width on `task`."""
+    return ["--task", task, "--num_envs", str(RSL_ENVS),
             "--num_steps_per_env", str(RSL_STEPS),
             "--hidden", *map(str, RSL_HIDDEN), "--max_iterations", str(iters),
             "--log_dir", log_dir, "--save_interval", "1", *extra]
 
 
-def check_rsl_logged(card: str, logged: list, cfg) -> None:
+def check_rsl_logged(card: str, logged: list, cfg, label: str = "rsl",
+                     keys=on_policy_runner.METRIC_KEYS) -> None:
     """Every metric finite, the learning rate in [min_lr, max_lr]; prints
     each iteration's rates."""
     steps = RSL_ENVS * RSL_STEPS
     for rec in logged:
-        for k in on_policy_runner.METRIC_KEYS:
+        for k in keys:
             if not math.isfinite(rec[k]):
-                raise AssertionError(f"rsl: non-finite {k} at iteration "
+                raise AssertionError(f"{label}: non-finite {k} at iteration "
                                      f"{rec['step']}")
         # the learning rate is float32, clamped to the bounds in float32
         if not (np.float32(cfg.min_lr) <= np.float32(rec["learning_rate"])
                 <= np.float32(cfg.max_lr)):
-            raise AssertionError(f"rsl: learning rate {rec['learning_rate']} "
-                                 f"at iteration {rec['step']}")
-        print(f"rsl: iteration {rec['step']}: {rec['time/iter_seconds']:.4f} s "
-              f"= rollout + GAE {rec['time/rollout']:.4f} s "
+            raise AssertionError(f"{label}: learning rate "
+                                 f"{rec['learning_rate']} at iteration "
+                                 f"{rec['step']}")
+        print(f"{label}: iteration {rec['step']}: {rec['time/iter_seconds']:.4f} s "
+              f"= rollout {rec['time/rollout']:.4f} s "
               f"({steps / rec['time/rollout']:.1f} env-steps/s) + update "
               f"{rec['time/update']:.4f} s (+ fetch); {rec['time/fps']:.1f} "
               f"env-steps/s; reward {rec['mean_reward']:+.5f}, kl "
               f"{rec['mean_kl']:.5f}, lr {rec['learning_rate']:.6g} [{card}]")
 
 
-def resume_rsl(card: str, log_dir: str, first) -> None:
+def resume_rsl(card: str, log_dir: str, first, task: str = "drone_velocity",
+               label: str = "rsl") -> None:
     """train_rsl --resume to RSL_ITERS + 1: raises unless it starts at
     iteration RSL_ITERS from the parameters and optimizer state saved
     there, which are the first run's."""
@@ -1693,11 +1761,12 @@ def resume_rsl(card: str, log_dir: str, first) -> None:
 
     on_policy_runner.OnPolicyRunner.learn = spy
     try:
-        resumed = train_rsl.main(rsl_args(log_dir, RSL_ITERS + 1, "--resume"))
+        resumed = train_rsl.main(rsl_args(log_dir, RSL_ITERS + 1, "--resume",
+                                          task=task))
     finally:
         on_policy_runner.OnPolicyRunner.learn = learn
     if at_start["iteration"] != RSL_ITERS or resumed.iteration != RSL_ITERS + 1:
-        raise AssertionError(f"rsl: resumed at {at_start['iteration']}, "
+        raise AssertionError(f"{label}: resumed at {at_start['iteration']}, "
                              f"ended at {resumed.iteration}")
     diff = first_difference(snapshot(first, []), at_start["snap"])
     saved = torch.load(os.path.join(log_dir, f"model_{RSL_ITERS}.pt"),
@@ -1705,25 +1774,25 @@ def resume_rsl(card: str, log_dir: str, first) -> None:
     if diff or not torch.equal(at_start["lr"], first.opt_state.learning_rate) \
             or any(not torch.equal(v, saved["params"][k])
                    for k, v in at_start["snap"]["variables"].items()):
-        raise AssertionError(f"rsl: the resumed runner differs from "
+        raise AssertionError(f"{label}: the resumed runner differs from "
                              f"model_{RSL_ITERS}.pt ({diff})")
     if [r["step"] for r in read_logged(log_dir)] != list(range(1, RSL_ITERS + 2)):
-        raise AssertionError("rsl: the resumed run's log")
-    print(f"rsl: --resume loaded model_{RSL_ITERS}.pt: iteration {RSL_ITERS}, "
+        raise AssertionError(f"{label}: the resumed run's log")
+    print(f"{label}: --resume loaded model_{RSL_ITERS}.pt: iteration {RSL_ITERS}, "
           "the saved parameters and optimizer state bit for bit; ran to "
           f"{resumed.iteration} [{card}]")
 
 
-def reproduce_rsl(card: str) -> None:
-    """Two OnPolicyRunners from seed 1 at phase 11's width end 2 iterations
-    with the same parameters, optimizer state and logged metrics (but
-    time/*), bit for bit."""
+def reproduce_rsl(card: str, make_env=DroneRobot, label: str = "rsl") -> None:
+    """Two OnPolicyRunners from seed 1 at phase 11's width on envs from
+    `make_env` end 2 iterations with the same parameters, optimizer state
+    and logged metrics (but time/*), bit for bit."""
     snaps = []
     for _ in range(2):
         log_dir = tempfile.mkdtemp(prefix="chip_smoke_rsl_repro_")
         try:
             runner = on_policy_runner.OnPolicyRunner(
-                DroneRobot(), ppoc.ContinuousPPOConfig(),
+                make_env(), ppoc.ContinuousPPOConfig(),
                 on_policy_runner.OnPolicyRunnerConfig(
                     num_steps_per_env=RSL_STEPS, save_interval=0),
                 num_envs=RSL_ENVS, log_dir=log_dir, seed=1,
@@ -1734,9 +1803,9 @@ def reproduce_rsl(card: str) -> None:
             shutil.rmtree(log_dir, ignore_errors=True)
     diff = first_difference(*snaps)
     if diff:
-        raise AssertionError(f"rsl: a second OnPolicyRunner from seed 1 "
+        raise AssertionError(f"{label}: a second OnPolicyRunner from seed 1 "
                              f"differs first in {diff}")
-    print("rsl: two OnPolicyRunners from seed 1 end 2 iterations with the "
+    print(f"{label}: two OnPolicyRunners from seed 1 end 2 iterations with the "
           "same parameters, optimizer state and logged metrics (but time/*), "
           f"bit for bit [{card}]")
 
@@ -1803,10 +1872,11 @@ def drone_on_cpu(card: str, runner) -> None:
           + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + f" [{card}]")
 
 
-def profile_rsl(card: str, runner) -> None:
+def profile_rsl(card: str, runner, what: str = "drones",
+                label: str = "rsl") -> None:
     """One iteration of the runner at full width (rollout, GAE, update),
     timed and then under the profiler: the device-busy share and device
-    activities per env step (one step of all RSL_ENVS drones)."""
+    activities per env step (one step of all RSL_ENVS robots)."""
     state, out = runner.env.reset(RSL_ENVS, runner.generator)
     obs = out.obs
     torch.cuda.synchronize()
@@ -1814,15 +1884,15 @@ def profile_rsl(card: str, runner) -> None:
     state, obs, metrics = runner._train_iteration(state, obs)
     metrics.tolist()
     secs = time.perf_counter() - t0
-    res = profile(f"rsl: an iteration ({RSL_STEPS} steps of {RSL_ENVS} drones, "
-                  "the update)", lambda: runner._train_iteration(state, obs)[2]
+    res = profile(f"{label}: an iteration ({RSL_STEPS} steps of {RSL_ENVS} "
+                  f"{what}, the update)", lambda: runner._train_iteration(state, obs)[2]
                   .tolist(), secs)
-    print(f"rsl: {res['activities'] / RSL_STEPS:.1f} device activities per env "
+    print(f"{label}: {res['activities'] / RSL_STEPS:.1f} device activities per env "
           f"step, device busy {res['busy_ms']:.3f} ms of the {secs * 1e3:.3f} ms "
           f"unprofiled iteration [{card}]")
-    rollout_res = profile(f"rsl: a rollout ({RSL_STEPS} steps)",
+    rollout_res = profile(f"{label}: a rollout ({RSL_STEPS} steps)",
                           lambda: runner._rollout(state, obs))
-    print(f"rsl: rollout {rollout_res['activities'] / RSL_STEPS:.1f} device "
+    print(f"{label}: rollout {rollout_res['activities'] / RSL_STEPS:.1f} device "
           f"activities and {rollout_res['busy_ms'] / RSL_STEPS:.3f} ms device "
           f"time per env step [{card}]")
 
@@ -1861,6 +1931,373 @@ def phase_rsl(card: str) -> dict:
         profile_rsl(card, first)
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the legged robots, rough terrain, the recurrent family and the
+# terrain scenes
+
+
+def _legged_fields_close(label, got, want, keep) -> float:
+    """Raises unless the state fields (and the step's outputs) of the envs
+    in `keep` agree within LEGGED_SCALE_TOL of each field's largest
+    magnitude (at least 1) and their masks are equal; returns the largest
+    difference relative to that scale."""
+    (gs, go), (ws, wo) = got, want
+    worst = 0.0
+    for name in ("last_contacts", "knee_contact", "episode_len",
+                 "terrain_level"):
+        if not torch.equal(getattr(gs, name)[keep].cpu(),
+                           getattr(ws, name)[keep].cpu()):
+            raise AssertionError(f"{label}: {name} differs")
+    pairs = [(f, getattr(gs, f), getattr(ws, f)) for f in LEGGED_FIELDS]
+    pairs += [(f"out.{f}", getattr(go, f), getattr(wo, f))
+              for f in ("obs", "reward", "episode_reward")]
+    for name, a, b in pairs:
+        a, b = a[keep].cpu().double(), b[keep].cpu().double()
+        scale = max(1.0, float(b.abs().max()))
+        err = float((a - b).abs().max()) / scale
+        if err > LEGGED_SCALE_TOL:
+            raise AssertionError(f"{label}: {name} differs by {err * scale} "
+                                 f"(scale {scale})")
+        worst = max(worst, err)
+    return worst
+
+
+def _to_cpu_state(state):
+    return state._replace(**{f: getattr(state, f).cpu() for f in state._fields
+                             if f != "rng"},
+                          rng=torch.Generator().manual_seed(5).get_state())
+
+
+def legged_on_cpu(card: str, env, policy=None, label="legged") -> None:
+    """RSL_CPU_ENVS robots from a fresh spawn on the card, stepped
+    RSL_CPU_STEPS times with the same actions (uniform in +-0.3, or the
+    policy's mean plus that where a policy is given), each step on the CPU
+    from a copy of the card's state before it (the explicit contacts are
+    stiff: tests/test_torch_legged.py compares the port with JAX the same
+    way, at LEGGED_SCALE_TOL).  Done envs re-spawn from their device's
+    generator, so their post-reset state leaves the comparison."""
+    cpu_env = LeggedRobot(env.cfg, device="cpu")
+    state, out = env.reset(RSL_CPU_ENVS,
+                           torch.Generator(device="cuda").manual_seed(5))
+    draws = torch.Generator().manual_seed(6)
+    worst = 0.0
+    for k in range(RSL_CPU_STEPS):
+        actions = 0.6 * torch.rand(RSL_CPU_ENVS, env.num_actions,
+                                   generator=draws) - 0.3
+        if policy is not None:
+            actions = actions + policy(out.obs).cpu()
+        cs = _to_cpu_state(state)
+        state, out = env.step(state, actions.cuda())
+        cs, co = cpu_env.step(cs, actions)
+        if not torch.equal(co.done, out.done.cpu()):
+            raise AssertionError(f"{label}: done differs at step {k}")
+        keep = ~co.done
+        worst = max(worst, _legged_fields_close(
+            f"{label} step {k}, card vs CPU", (cs, co), (state, out), keep))
+    print(f"{label}: {RSL_CPU_ENVS} robots x {RSL_CPU_STEPS} steps on the CPU "
+          f"from the card's state agree with the card within "
+          f"{LEGGED_SCALE_TOL:g} of each field's scale (largest {worst:.3g}); "
+          f"contact, knee and done masks equal [{card}]")
+
+
+def phase_legged(card: str) -> dict:
+    """train_rsl's default task at the CLI's full width, a resume, a second
+    runner from the seed, the CPU against the card, the profile, and one
+    iteration of each other robot; returns each kernel's launches in the
+    training runs (all 0)."""
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_legged_")
+    label = "legged a1"
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = train_rsl.main(rsl_args(log_dir, RSL_ITERS, task=LEGGED_TASK))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launches()
+        peak = torch.cuda.max_memory_allocated()
+        if any(counts.values()):
+            raise AssertionError(f"{label} launched {counts}, expected none")
+        env = first.env
+        assert isinstance(env, legged_robot.LeggedRobot)
+        assert (env.obs_dim, env.num_actions, first.device.type) == (48, 12,
+                                                                      "cuda")
+        logged = read_logged(log_dir)
+        if [r["step"] for r in logged] != list(range(1, RSL_ITERS + 1)):
+            raise AssertionError(f"{label}: logged iterations")
+        check_rsl_logged(card, logged, first.alg_cfg, label)
+        print(f"{label}: train_rsl {RSL_ITERS} iterations of {RSL_ENVS} envs x "
+              f"{RSL_STEPS} steps in {secs:.3f} s with the saves; peak memory "
+              f"{peak / 2 ** 30:.3f} GiB [{card}]")
+        t0 = time.perf_counter()
+        resume_rsl(card, log_dir, first, LEGGED_TASK, label)
+        t1 = time.perf_counter()
+        reproduce_rsl(card, lambda: LeggedRobot(legged_robot.a1_config()), label)
+        t2 = time.perf_counter()
+        legged_on_cpu(card, env, first.get_inference_policy(), label)
+        t3 = time.perf_counter()
+        # LEGGED_PROFILE_STEPS rollout steps (the policy's forward and
+        # sample, the env step) under the profiler: its post-processing
+        # takes ~0.5 ms a device activity on the host, ~37 s for a whole
+        # rollout's 71,000 (phase 11 profiles the whole iteration; the
+        # legged update is the drone's)
+        state, out = env.reset(RSL_ENVS, first.generator)
+
+        def rollout_steps():
+            s, o = state, out
+            with torch.no_grad():
+                for _ in range(LEGGED_PROFILE_STEPS):
+                    ac = first.model(o.obs)
+                    a = gaussian.sample(ac.mean, ac.log_std, first.generator)
+                    gaussian.log_prob(ac.mean, ac.log_std, a)
+                    s, o = env.step(s, a)
+
+        res = profile(f"{label}: {LEGGED_PROFILE_STEPS} rollout steps of "
+                      f"{RSL_ENVS} robots", rollout_steps)
+        print(f"{label}: a rollout step {res['activities'] / LEGGED_PROFILE_STEPS:.1f} "
+              f"device activities and {res['busy_ms'] / LEGGED_PROFILE_STEPS:.3f} "
+              f"ms device time, busy {100 * res['busy_ms'] / res['wall_ms']:.1f}% "
+              f"of its profiled wall [{card}]")
+        print(f"{label}: the resume {t1 - t0:.1f} s, the second runners "
+              f"{t2 - t1:.1f} s, the CPU check {t3 - t2:.1f} s, the profile "
+              f"{time.perf_counter() - t3:.1f} s")
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    zoo = {}
+    for task in LEGGED_ZOO:
+        log_dir = tempfile.mkdtemp(prefix="chip_smoke_legged_")
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            runner = train_rsl.main(rsl_args(log_dir, 1, task=task))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            zoo[task] = launches()
+            if any(zoo[task].values()):
+                raise AssertionError(f"{task} launched {zoo[task]}")
+            rec = read_logged(log_dir)[0]
+            check_rsl_logged(card, [rec], runner.alg_cfg, f"legged {task}")
+            print(f"legged {task}: one iteration of {RSL_ENVS} envs (obs "
+                  f"{runner.env.obs_dim}, {runner.env.num_actions} actions) "
+                  f"in {secs:.3f} s [{card}]")
+        finally:
+            shutil.rmtree(log_dir, ignore_errors=True)
+    return {"legged": counts,
+            "legged_zoo": {k: sum(c[k] for c in zoo.values()) for k in KERNELS}}
+
+
+def _circular(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    d = (a.double().cpu() - b.double().cpu()).abs() % 1.0
+    return torch.minimum(d, 1.0 - d)
+
+
+def phase_rough(card: str) -> None:
+    """A rough-terrain A1 with measure_heights (obs 235) and curriculum
+    levels, on the card against the CPU: the hash at 100,000 cell corners
+    within CARD_HASH_BOUND on the circle, the heights at 100,000 points of
+    every level within amp * CARD_HASH_BOUND but at hash wraps (at most
+    8 * CARD_HASH_BOUND of them), and RSL_CPU_ENVS robots stepped on the
+    card with the CPU's observation of each step's state held to it.
+    (The steps themselves are not compared: 16% of the hashes differ by
+    an ulp of the product between the devices, and the ground's error
+    moves the stiff contacts past the plane's tolerance.)"""
+    cfg = legged_robot.a1_config(terrain=legged_robot.LeggedTerrain(
+        mesh_type="rough", measure_heights=True, curriculum=True))
+    env, cpu_env = LeggedRobot(cfg), LeggedRobot(cfg, device="cpu")
+    assert env.obs_dim == 235
+    rng = np.random.default_rng(0)
+    n = 100_000
+    ix, iy = (torch.from_numpy(rng.integers(-160, 160, n).astype(np.float32))
+              for _ in range(2))
+    circ = _circular(env.terrain_hash(ix.cuda(), iy.cuda()),
+                     cpu_env.terrain_hash(ix, iy))
+    if float(circ.max()) > CARD_HASH_BOUND:
+        raise AssertionError(f"rough: the hash differs by {float(circ.max())}")
+    x, y = (torch.from_numpy(rng.uniform(-40, 40, n).astype(np.float32))
+            for _ in range(2))
+    level = torch.from_numpy(rng.integers(0, 10, n).astype(np.int32))
+    amp = 0.08 * (level.double() + 1.0) / 10
+    err = (env.terrain_height(x.cuda(), y.cuda(), level.cuda()).cpu().double()
+           - cpu_env.terrain_height(x, y, level).double()).abs() / amp
+    wrapped = err > CARD_HASH_BOUND + 1e-5
+    # a height leaves the bound only where one of its four corners' hash
+    # lies within the bound of the circle's seam at 0 (a wrap): for hashes
+    # spread evenly over [0, 1), at most 4 * 2 * CARD_HASH_BOUND of them
+    if (float(wrapped.double().mean()) > 8 * CARD_HASH_BOUND
+            or float(err.max()) > 1.0):
+        raise AssertionError(f"rough: {int(wrapped.sum())} heights past the "
+                             f"bound, the largest {float(err.max())} of amp")
+    print(f"rough: the hash at {n} corners within {float(circ.max()):.3g} "
+          f"(bound {CARD_HASH_BOUND:g}) card vs CPU, "
+          f"{float((circ > 0).double().mean()):.4f} of them unequal; heights "
+          f"within amp x the bound at all but {int(wrapped.sum())} of {n} "
+          f"points (wraps) [{card}]")
+
+    # 256 robots stepped on the card; at each step the CPU's observation
+    # of a copy of the card's state: the height grid within 5 * amp *
+    # CARD_HASH_BOUND but at wraps, the rest within LEGGED_SCALE_TOL
+    state, out = env.reset(RSL_CPU_ENVS,
+                           torch.Generator(device="cuda").manual_seed(8))
+    draws = torch.Generator().manual_seed(9)
+    no = torch.zeros(RSL_CPU_ENVS, dtype=torch.bool)
+    worst, wrapped = 0.0, 0
+    for k in range(RSL_CPU_STEPS):
+        actions = 0.6 * torch.rand(RSL_CPU_ENVS, 12, generator=draws) - 0.3
+        state, out = env.step(state, actions.cuda())
+        if not torch.isfinite(out.obs).all() or out.obs.shape[1] != 235:
+            raise AssertionError(f"rough: the observation at step {k}")
+        cs = _to_cpu_state(state)
+        co = cpu_env._out(cs, out.reward.cpu(), no, no, None)
+        got, want = out.obs.cpu().double(), co.obs.double()
+        err = float((got[:, :48] - want[:, :48]).abs().max())
+        if err > LEGGED_SCALE_TOL * max(1.0, float(want[:, :48].abs().max())):
+            raise AssertionError(f"rough: obs differ by {err} at step {k}")
+        amp5 = 5 * 0.08 * (cs.terrain_level.double()[:, None] + 1.0) / 10
+        herr = (got[:, 48:] - want[:, 48:]).abs() / amp5
+        past = herr > CARD_HASH_BOUND + 1e-5
+        wrapped += int(past.sum())
+        worst = max(worst, float(herr[~past].max()))
+        if float(herr.max()) > 1.0:
+            raise AssertionError(f"rough: a height differs by "
+                                 f"{float(herr.max())} x 5 amp at step {k}")
+    n_heights = RSL_CPU_ENVS * RSL_CPU_STEPS * 187
+    if wrapped > 8 * CARD_HASH_BOUND * n_heights:
+        raise AssertionError(f"rough: {wrapped} of {n_heights} heights past "
+                             "the bound")
+    print(f"rough: {RSL_CPU_ENVS} robots x {RSL_CPU_STEPS} steps on the card "
+          f"(levels 0-5): the CPU's observation of the card's state has the "
+          f"height grid within {worst:.3g} of 5 x amp (bound "
+          f"{CARD_HASH_BOUND:g}) at all but {wrapped} of {n_heights} points "
+          f"(wraps), the rest within {LEGGED_SCALE_TOL:g} [{card}]")
+
+
+def phase_recurrent(card: str) -> dict:
+    """train_rsl --recurrent on the default task at 4,096 envs, a second
+    runner from the seed, and the exported policy against the runner's;
+    returns each kernel's launches in the training run (all 0)."""
+    args = ["--task", LEGGED_TASK, "--num_envs", str(RSL_ENVS),
+            "--num_steps_per_env", str(RSL_STEPS), "--max_iterations",
+            str(REC_ITERS), "--recurrent"]
+    label = "recurrent"
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = train_rsl.main(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()):
+        raise AssertionError(f"{label} launched {counts}, expected none")
+    assert isinstance(first, ppo_recurrent.RecurrentOnPolicyRunner)
+    assert first.model.rnn_type == "lstm" and first.iteration == REC_ITERS
+    if first.opt_state.count != REC_ITERS * 20:
+        raise AssertionError(f"{label}: {first.opt_state.count} Adam steps")
+    check_rsl_logged(card, first.logged, first.cfg, label,
+                     ppo_recurrent.METRIC_KEYS)
+    print(f"{label}: train_rsl --recurrent {REC_ITERS} iterations of "
+          f"{RSL_ENVS} envs x {RSL_STEPS} steps (LSTM 256, heads 256, 5 x 4 "
+          f"minibatches of {RSL_ENVS // 4} trajectories) in {secs:.3f} s; "
+          f"peak memory {peak / 2 ** 30:.3f} GiB [{card}]")
+    # a second runner from seed 1, built as train_rsl builds its runner
+    second = ppo_recurrent.RecurrentOnPolicyRunner(
+        LeggedRobot(legged_robot.a1_config()), ppoc.ContinuousPPOConfig(),
+        num_steps_per_env=RSL_STEPS, num_envs=RSL_ENVS, seed=1)
+    second.learn(REC_ITERS)
+    diff = first_difference(snapshot(first, first.logged),
+                            snapshot(second, second.logged))
+    if diff:
+        raise AssertionError(f"{label}: a second runner from seed 1 differs "
+                             f"first in {diff}")
+    print(f"{label}: a second RecurrentOnPolicyRunner from seed 1 ends "
+          f"{REC_ITERS} iterations with train_rsl's parameters, optimizer "
+          f"state and metrics (but time/*), bit for bit [{card}]")
+    # the export against the runner's inference policy, 4 steps of carried
+    # hidden state on the env's observations
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_rec_"), "rec.pt2")
+    try:
+        nbytes = play.export_recurrent_policy(first.model, first.env.obs_dim,
+                                              path, batch=RSL_CPU_ENVS)
+        exported = play.load_exported_policy(path)
+    finally:
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    policy = first.get_inference_policy()
+    env = first.env
+    state, out = env.reset(RSL_CPU_ENVS,
+                           torch.Generator(device="cuda").manual_seed(7))
+    hidden = first.model.initial_state(RSL_CPU_ENVS)
+    leaves = actor_critic.hidden_leaves(hidden)
+    worst = 0.0
+    for k in range(4):
+        mean, hidden = policy(out.obs, hidden)
+        with torch.no_grad():
+            emean, *leaves = exported(out.obs, *leaves)
+        for a, b in zip((emean, *leaves),
+                        (mean, *actor_critic.hidden_leaves(hidden))):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       rtol=MLP_RTOL, atol=MLP_ATOL,
+                                       err_msg=f"{label}: export step {k}")
+            worst = max(worst, float((a - b).abs().max()))
+        state, out = env.step(state, mean)
+        hidden = actor_critic.reset_hidden(hidden, out.done)
+        leaves = [x * (~out.done).float()[:, None] for x in leaves]
+    print(f"{label}: export_recurrent_policy ({nbytes} bytes) -> "
+          f"load_exported_policy equals the runner's inference policy over 4 "
+          f"steps of carried hidden state on the card (max abs difference "
+          f"{worst:.3g}) [{card}]")
+    return counts
+
+
+def phase_terrain(card: str) -> dict:
+    """TERRAIN_SCENES terrain scenes (seed 0, R=64) through the flagship env
+    on the splat path (256 envs, 128x128), reset + TERRAIN_STEPS steps of
+    the seeded policy's actions (drive): each kernel launched once a reset
+    and a step, and the first CPU_ENVS envs equal to the port on the CPU
+    step by step; returns each kernel's launches in the run."""
+    cfg = dataclasses.replace(
+        flagship_config(), scene=config.SceneConfig(num_scenes=TERRAIN_SCENES,
+                                                    seed=0, dataset="terrain"))
+    t0 = time.perf_counter()
+    scenes = make_scenes(cfg.scene, RES)
+    print(f"terrain: {TERRAIN_SCENES} terrain scenes (seed 0) at R={RES}, "
+          f"Q={scenes.surf_pts.shape[1]}, at most "
+          f"{int(scenes.surf_mask.sum(1).max())} valid points, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    policy = ActorCriticPolicy(config.ModelConfig(),
+                               torch.Generator(device="cuda").manual_seed(1))
+    policy.eval()
+    actions, _, keep, _, counts = drive(card, "terrain", cfg, scenes, policy,
+                                        {name: 1 for name in KERNELS},
+                                        TERRAIN_STEPS)
+    gray = check_on_cpu("terrain", cfg, scenes, actions, keep)
+    print(f"terrain: envs 0-{CPU_ENVS - 1} equal the port on the CPU over "
+          f"reset + {TERRAIN_STEPS} steps, every output and state field bit "
+          f"for bit but the grayscale frames (max diff {gray:.3g}) [{card}]")
+    return counts
+
+
+def phase_12(card: str) -> dict:
+    """Phase 12's parts in turn, each timed; returns each kernel's
+    launches by run."""
+    secs, counts = {}, {}
+    for part, run in (("legged", phase_legged), ("rough", phase_rough),
+                      ("recurrent", phase_recurrent),
+                      ("terrain", phase_terrain)):
+        t0 = time.perf_counter()
+        got = run(card)
+        secs[part] = time.perf_counter() - t0
+        if part == "legged":
+            counts.update(got)
+        elif got is not None:
+            counts[part] = got
+    print(f"phase 12: {sum(secs.values()):.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
+          + f") [{card}]")
     return counts
 
 
@@ -1923,12 +2360,13 @@ def main() -> None:
         dda_counts = phase_dda(card, rollout_scenes)
         dataset_counts = phase_dataset(card, dirs, data_root)
         rsl_counts = phase_rsl(card)
+        p12_counts = phase_12(card)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
         shutil.rmtree(data_root, ignore_errors=True)
     by_path = {"rollout": rollout_counts, "eval": eval_counts,
                "train": train_counts, "report": report_counts, **dda_counts,
-               **dataset_counts, "rsl": rsl_counts}
+               **dataset_counts, "rsl": rsl_counts, **p12_counts}
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         kernels.append({

@@ -563,15 +563,15 @@ def load_npz(path: str, device: torch.device | str = "cuda") -> SceneSet:
 
 def make_scenes(cfg: SceneConfig, grid_res: int,
                 device: torch.device | str = "cuda") -> SceneSet:
-    """The scene set a config names, on `device`: a procedural family, or
-    a dataset directory holding ``scenes.npz`` (its own render
+    """The scene set a config names, on `device`: a procedural family
+    (houses, objects, convex, or terrain, ``env/terrain.py``), or a
+    dataset directory holding ``scenes.npz`` (its own render
     resolution; `grid_res` is then unused) or else a reference-layout
     ``gt_grid.npy``.  Unlike the JAX package the port keeps no on-disk
     scene cache: it writes nothing outside the caller's control."""
     if cfg.dataset == "terrain":
-        raise NotImplementedError(
-            "scene.dataset='terrain' is not implemented in gennbv_tpu_torch "
-            "yet (ROADMAP.md Queue 1 item 11, with env/terrain.py)")
+        from gennbv_tpu_torch.env.terrain import generate_terrain
+        return generate_terrain(cfg, grid_res, device=device)
     if cfg.dataset in PROCEDURAL_FAMILIES:
         return generate_procedural(cfg, grid_res, device=device)
     npz = os.path.join(cfg.dataset, "scenes.npz")

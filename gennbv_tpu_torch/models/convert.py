@@ -13,8 +13,11 @@ collections.  Imports no JAX.
 
 ``jax_opt_state_to_port`` carries optax's Adam state over the same way.
 ``gaussian_ac_to_state_dict`` and ``jax_continuous_opt_state_to_port`` do
-the same for ``GaussianActorCritic`` and the continuous learner's
-optimizer (``algo/ppo_continuous.py``).
+the same for ``GaussianActorCritic`` and ``RecurrentActorCritic`` (its
+LSTM and GRU cells' kernels concatenated gate by gate) and the continuous
+learner's optimizer (``algo/ppo_continuous.py``, ``ppo_recurrent.py``).
+``cnn_policy_to_state_dict`` takes ``models/torso.py``'s ``CnnPolicy``
+(Conv kernel [kH, kW, in, out] -> Conv2d weight [out, in, kH, kW]).
 """
 from __future__ import annotations
 
@@ -97,16 +100,62 @@ def jax_opt_state_to_port(opt_state: Any) -> AdamState:
 def gaussian_ac_to_state_dict(params: Mapping[str, Any]
                               ) -> dict[str, torch.Tensor]:
     """The ``params`` of ``gennbv_tpu.models.actor_critic.
-    GaussianActorCritic`` (or a tree shaped like them: Adam's moments) ->
-    the port's ``GaussianActorCritic`` state_dict: each Dense layer keeps
-    its name, its kernel transposed; ``log_std`` as it is."""
+    GaussianActorCritic`` or ``RecurrentActorCritic`` (or a tree shaped
+    like them: Adam's moments) -> the port's state_dict: each Dense layer
+    keeps its name, its kernel transposed; ``log_std`` as it is; the
+    ``memory_a``/``memory_c`` cells by ``_cell``."""
     sd: dict[str, torch.Tensor] = {}
     for name, p in params.items():
         if name == "log_std":
             sd[name] = _t(p)
+        elif name in ("memory_a", "memory_c"):
+            sd.update({f"{name}.{k}": v for k, v in _cell(p).items()})
         else:
             sd[f"{name}.weight"] = _t(p["kernel"]).T.contiguous()
             sd[f"{name}.bias"] = _t(p["bias"])
+    return sd
+
+
+def _cell(p: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A Flax OptimizedLSTMCell's (ii/if/ig/io without bias, hi/hf/hg/ho
+    with) or GRUCell's (ir/iz/in with bias, hr/hz without, hn with)
+    params -> the port's cell: each gate's kernel transposed, stacked
+    along the rows in gate order."""
+    def rows(names, part="kernel"):
+        return torch.cat([_t(p[n][part]).T if part == "kernel" else _t(p[n][part])
+                          for n in names]).contiguous()
+
+    if "ii" in p:
+        return {"weight_i": rows(("ii", "if", "ig", "io")),
+                "weight_h": rows(("hi", "hf", "hg", "ho")),
+                "bias_h": rows(("hi", "hf", "hg", "ho"), "bias")}
+    return {"weight_i": rows(("ir", "iz", "in")),
+            "bias_i": rows(("ir", "iz", "in"), "bias"),
+            "weight_h": rows(("hr", "hz", "hn")),
+            "bias_hn": _t(p["hn"]["bias"])}
+
+
+def cnn_policy_to_state_dict(params: Mapping[str, Any]
+                             ) -> dict[str, torch.Tensor]:
+    """The ``params`` of ``gennbv_tpu.models.torso.CnnPolicy`` -> the
+    port's ``CnnPolicy`` state_dict: the NatureCNN's convolutions
+    HWIO -> OIHW, its ``fc`` and the heads' Dense kernels transposed (the
+    port flattens the conv features in Flax's NHWC order before ``fc``)."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def dense(prefix, q):
+        sd[f"{prefix}.weight"] = _t(q["kernel"]).T.contiguous()
+        sd[f"{prefix}.bias"] = _t(q["bias"])
+
+    for name in ("c1", "c2", "c3"):
+        conv = params["cnn"][name]
+        sd[f"cnn.{name}.weight"] = _t(conv["kernel"]).permute(3, 2, 0, 1).contiguous()
+        sd[f"cnn.{name}.bias"] = _t(conv["bias"])
+    dense("cnn.fc", params["cnn"]["fc"])
+    for name, q in params.get("torso", {}).items():
+        dense(f"torso.{name}", q)
+    dense("action_net", params["action_net"])
+    dense("value_net", params["value_net"])
     return sd
 
 

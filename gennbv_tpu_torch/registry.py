@@ -4,8 +4,7 @@
 Keeps the reference's task-name semantics (legged_gym/utils/task_registry.py;
 `train_gennbv` / `eval_gennbv` registered at gennbv/__init__.py:6-7)
 without the class-registry machinery: a task is a function from a Config
-and a device to a ready env.  The four legged tasks are registered but not
-ported yet: they raise.
+and a device to a ready env.
 """
 from __future__ import annotations
 
@@ -13,7 +12,7 @@ import dataclasses
 from typing import Callable, Dict
 
 from gennbv_tpu_torch import spec
-from gennbv_tpu_torch.config import Config, _unsupported, eval_env_config
+from gennbv_tpu_torch.config import Config, eval_env_config
 
 _REGISTRY: Dict[str, Callable] = {}
 
@@ -66,8 +65,9 @@ def _make_legged(robot: str):
         """Physics legged robot velocity task (legged_gym/env/base/
         legged_robot.py:49; robot parameter sets from
         legged_gym/env/{a1,anymal_b,anymal_c,cassie}/)."""
-        raise _unsupported(f"task {robot}_velocity (env/legged_robot.py)",
-                           "Queue 1 item 11's remainder")
+        from gennbv_tpu_torch.env import legged_robot as lr
+        lcfg = lr.ZOO[robot]()
+        return lr.LeggedRobot(lcfg, device=device), lcfg
     return factory
 
 

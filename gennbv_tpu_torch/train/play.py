@@ -11,7 +11,9 @@ optionally writes:
 - env 0's episode as an animated GIF (depth view and coverage map);
 - the deterministic policy as a ``torch.export`` program (where the JAX
   package writes StableHLO): ``torch.export.load(path).module()`` runs it
-  in any PyTorch process without this package's code.
+  in any PyTorch process without this package's code
+  (``export_recurrent_policy`` does the same for a recurrent actor, the
+  hidden state in its signature).
 
     python -m gennbv_tpu_torch.train.play \\
         --ckpt runs/<exp>/models/rl_model_best_episode_reward \\
@@ -28,6 +30,7 @@ import os
 import numpy as np
 import torch
 
+from gennbv_tpu_torch.models import actor_critic as ac
 from gennbv_tpu_torch.models import distributions
 
 
@@ -62,17 +65,44 @@ def export_policy(policy: torch.nn.Module, obs_dim: int, path: str,
     return os.path.getsize(path)
 
 
-def export_recurrent_policy(model, params, obs_dim: int, path: str,
-                            batch: int = 1):
-    """The recurrent actor's export (``(obs, hidden) -> (action_mean,
-    hidden')``) waits for the recurrent models."""
-    raise NotImplementedError(
-        "export_recurrent_policy: the recurrent models are not implemented "
-        "in gennbv_tpu_torch yet (ROADMAP.md Queue 1 item 11)")
+class RecurrentPolicy(torch.nn.Module):
+    """``(obs, *hidden_leaves) -> (mean, *hidden_leaves')`` of a
+    RecurrentActorCritic, the leaves in ``models.actor_critic.
+    hidden_leaves`` order (the JAX package's ``jax.tree.flatten`` order of
+    its RNNState)."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, obs: torch.Tensor, *leaves: torch.Tensor):
+        out, hidden = self.model(obs, ac.hidden_from_leaves(
+            leaves, self.model.rnn_type))
+        return (out.mean, *ac.hidden_leaves(hidden))
+
+
+def export_recurrent_policy(model: torch.nn.Module, obs_dim: int, path: str,
+                            batch: int = 1) -> int:
+    """Write a recurrent actor (``models.actor_critic.RecurrentActorCritic``)
+    as a ``torch.export`` program with the hidden state in the signature,
+    ``(obs, *hidden_leaves) -> (action_mean, *hidden_leaves')`` for
+    [batch, obs_dim] float32 observations, on the model's device -- the
+    counterpart of the reference's PolicyExporterLSTM (helpers.py:741-767),
+    which exports the LSTM with explicit hidden/cell tensors for the same
+    reason.  Returns the file's size in bytes."""
+    device = model.log_std.device
+    leaves = ac.hidden_leaves(model.initial_state(batch))
+    with torch.no_grad():
+        program = torch.export.export(
+            RecurrentPolicy(model),
+            (torch.zeros(batch, obs_dim, device=device), *leaves))
+    torch.export.save(program, path)
+    return os.path.getsize(path)
 
 
 def load_exported_policy(path: str):
-    """The callable of a program written by export_policy."""
+    """The callable of a program written by export_policy or
+    export_recurrent_policy."""
     return torch.export.load(path).module()
 
 

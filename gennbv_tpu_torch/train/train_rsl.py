@@ -7,21 +7,25 @@ pick a registered velocity task, build the env and an OnPolicyRunner
 (adaptive-KL Gaussian PPO, algo/ppo_continuous.py), and run
 `learn(max_iterations)` with per-iteration console logging and periodic
 model saves -- the reference's runner behavior
-(rsl_rl/runners/on_policy_runner.py:82-226).  Of the velocity tasks the
-port runs `drone_velocity`; the legged ones raise (ROADMAP, Queue 1 item
-11's remainder).  Runs on the CUDA card unless `--device cpu` is given.
+(rsl_rl/runners/on_policy_runner.py:82-226).  The tasks are
+`drone_velocity`, `a1_velocity` (the default), `anymal_b_velocity`,
+`anymal_c_velocity` and `cassie_velocity`.  Runs on the CUDA card unless
+`--device cpu` is given.
 
 Usage:
-    python -m gennbv_tpu_torch.train.train_rsl --task drone_velocity \
-        --num_envs 4096 --max_iterations 1500 [--log_dir runs/drone] [--resume]
+    python -m gennbv_tpu_torch.train.train_rsl --task a1_velocity \
+        --num_envs 4096 --max_iterations 1500 [--log_dir runs/a1] [--resume]
+
+`--recurrent` swaps in the LSTM actor-critic family
+(rsl_rl/modules/actor_critic_recurrent.py analogue, algo/ppo_recurrent.py)
+at its runner's own widths (LSTM 256, heads 256): like the JAX CLI it
+ignores --hidden, --log_dir, --save_interval and --resume.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import re
-
-from gennbv_tpu_torch.config import _unsupported
 
 # a checkpoint's file name: model_<iteration>.pt
 _CKPT = re.compile(r"model_(\d+)\.pt")
@@ -46,7 +50,7 @@ def parse_args(argv=None):
     p.add_argument("--hidden", type=int, nargs="+", default=[512, 256, 128],
                    help="actor/critic MLP widths (rsl_rl default zoo sizes)")
     p.add_argument("--recurrent", action="store_true",
-                   help="LSTM actor-critic (not ported yet)")
+                   help="LSTM actor-critic (algo/ppo_recurrent.py)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the run (default: the CUDA card)")
     return p.parse_args(argv)
@@ -66,10 +70,6 @@ def newest_checkpoint(log_dir: str):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.recurrent:
-        raise _unsupported("--recurrent (models/actor_critic.py "
-                           "RecurrentActorCritic, algo/ppo_recurrent.py)",
-                           "Queue 1 item 11's remainder")
     from gennbv_tpu_torch import registry
     from gennbv_tpu_torch.algo import ppo_continuous as ppoc
     from gennbv_tpu_torch.algo.on_policy_runner import (OnPolicyRunner,
@@ -78,6 +78,17 @@ def main(argv=None):
     env, _ = registry.make_env(args.task, None, device=args.device)
     log_dir = args.log_dir or os.path.join("runs", args.task)
     alg_cfg = ppoc.ContinuousPPOConfig(learning_rate=args.learning_rate)
+
+    if args.recurrent:
+        from gennbv_tpu_torch.algo.ppo_recurrent import RecurrentOnPolicyRunner
+        runner = RecurrentOnPolicyRunner(
+            env, alg_cfg, num_steps_per_env=args.num_steps_per_env,
+            num_envs=args.num_envs, seed=args.seed)
+        print(f"task={args.task} envs={args.num_envs} recurrent LSTM policy "
+              f"device={args.device}", flush=True)
+        runner.learn(args.max_iterations, log=True)
+        return runner
+
     runner = OnPolicyRunner(
         env, alg_cfg,
         OnPolicyRunnerConfig(num_steps_per_env=args.num_steps_per_env,

@@ -1,7 +1,9 @@
 """Tests of the port that need a CUDA card: each kernel against its plain
 version, the mapping golden, a rollout and an eval with the kernels in
 use, a PPO update against the same update on the CPU, the train CLI, and
-two trainings from one seed.
+two trainings from one seed; the drone, the legged robots (plane and
+rough terrain) and the recurrent actor-critic against the CPU, and two
+recurrent trainings from one seed.
 They skip on a machine without one.  This file imports no jax, so it
 also runs where jax is missing; tests/conftest.py imports jax, so there run
 it without the conftest:
@@ -547,5 +549,85 @@ def test_continuous_training_reproduces_itself(cuda, tmp_path):
         torch.cuda.synchronize()
         snaps.append(snapshot(runner, read_logged(log_dir)))
     assert [rec["step"] for rec in snaps[0]["logged"]] == [1, 2]
+    assert snaps[0]["count"] == 40
+    assert first_difference(*snaps) is None
+
+
+# ---------------------------------------------------------------------------
+# the legged robots and the recurrent family
+
+
+@pytest.mark.parametrize("robot", ["a1", "anymal_c", "cassie"])
+def test_legged_steps_on_card_match_cpu(cuda, robot):
+    """64 robots stepped 8 times with the same actions, each step on the
+    CPU from a copy of the card's state before it (the explicit contacts
+    are stiff: tests/test_torch_legged.py holds the port to JAX the same
+    way): every field within 1e-3 of its largest magnitude, the contact,
+    knee and done masks equal (chip_smoke.legged_on_cpu)."""
+    import chip_smoke
+    from gennbv_tpu_torch.env import legged_robot as lr
+    env = lr.LeggedRobot(lr.ZOO[robot](), device="cuda")
+    old = chip_smoke.RSL_CPU_ENVS
+    chip_smoke.RSL_CPU_ENVS = 64
+    try:
+        chip_smoke.legged_on_cpu("card test", env, None, f"legged {robot}")
+    finally:
+        chip_smoke.RSL_CPU_ENVS = old
+
+
+def test_rough_terrain_on_card_within_the_bound(cuda):
+    """The rough terrain's hash and heights, and the height grid of 256
+    robots stepped on the card, card against CPU (chip_smoke.phase_rough)."""
+    import chip_smoke
+    chip_smoke.phase_rough("card test")
+
+
+@pytest.mark.parametrize("rnn_type", ["lstm", "gru"])
+def test_recurrent_forward_on_card_matches_cpu(cuda, rnn_type):
+    """RecurrentActorCritic at the runner's widths (256), 4 steps of 512
+    envs with resets from the same weights on the card and the CPU:
+    tests/test_torch_recurrent.py's forward tolerance against Flax, 1e-5
+    relative and 1e-6 absolute."""
+    from gennbv_tpu_torch.models.actor_critic import (RecurrentActorCritic,
+                                                      hidden_leaves,
+                                                      reset_hidden)
+    g = torch.Generator().manual_seed(0)
+    cpu = RecurrentActorCritic(48, 12, 256, rnn_type, (256,), (256,),
+                               generator=g, device="cpu")
+    card = RecurrentActorCritic(48, 12, 256, rnn_type, (256,), (256,),
+                                device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    hc, hg = cpu.initial_state(512), card.initial_state(512)
+    with torch.no_grad():
+        for t in range(4):
+            obs = torch.randn(512, 48, generator=g)
+            done = torch.rand(512, generator=g) < 0.2
+            oc, hc = cpu(obs, hc)
+            og, hg = card(obs.cuda(), hg)
+            for a, b in ((og.mean, oc.mean), (og.value, oc.value),
+                         *zip(hidden_leaves(hg), hidden_leaves(hc))):
+                np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                           rtol=1e-5, atol=1e-6)
+            hc, hg = reset_hidden(hc, done), reset_hidden(hg, done.cuda())
+
+
+def test_recurrent_training_reproduces_itself(cuda):
+    """Two RecurrentOnPolicyRunners from one seed on the A1, 2 iterations
+    each at 256 envs: the same parameters, optimizer state and metrics
+    (but time/*), bit for bit."""
+    from gennbv_tpu_torch.algo import ppo_continuous as ppoc
+    from gennbv_tpu_torch.algo.ppo_recurrent import RecurrentOnPolicyRunner
+    from gennbv_tpu_torch.algo.repro import first_difference, snapshot
+    from gennbv_tpu_torch.env.legged_robot import LeggedRobot
+
+    snaps = []
+    for _ in range(2):
+        runner = RecurrentOnPolicyRunner(
+            LeggedRobot(device="cuda"), ppoc.ContinuousPPOConfig(),
+            num_steps_per_env=24, num_envs=256, seed=1, rnn_hidden=64,
+            actor_hidden=(64,), critic_hidden=(64,))
+        runner.learn(2)
+        torch.cuda.synchronize()
+        snaps.append(snapshot(runner, runner.logged))
     assert snaps[0]["count"] == 40
     assert first_difference(*snaps) is None

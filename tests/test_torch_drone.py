@@ -4,7 +4,8 @@ CLI against the JAX package's: the deterministic core on the same numpy
 inputs (the substeps of a control step, every reward term, termination,
 the observation, and k whole steps from a converted JAX state), the random
 parts held to their ranges; then the tests of tests/test_drone_robot.py
-and TestRegistry of tests/test_misc.py on the port alone."""
+and TestRegistry of tests/test_misc.py on the port alone (the legged
+robots' own tests are tests/test_torch_legged.py)."""
 import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 import os
@@ -449,9 +450,11 @@ def test_registry_names_and_drone_task():
     assert env.device == torch.device("cpu")
     assert dataclasses.asdict(dcfg) == dataclasses.asdict(
         jax_drone.DroneRobotConfig())
+    from gennbv_tpu_torch.env.legged_robot import LeggedRobot
     for robot in ("a1", "anymal_b", "anymal_c", "cassie"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            registry.make_env(f"{robot}_velocity", None, device="cpu")
+        env, lcfg = registry.make_env(f"{robot}_velocity", None, device="cpu")
+        assert isinstance(env, LeggedRobot) and env.device.type == "cpu"
+        assert env.cfg is lcfg
     with pytest.raises(KeyError):
         registry.make_env("humanoid", None, device="cpu")
 
@@ -505,11 +508,20 @@ def test_train_rsl_cli_and_resume(tmp_path, capsys):
     assert train_rsl.newest_checkpoint(log_dir).endswith("model_3.pt")
     out = capsys.readouterr().out
     assert "resumed from" in out and "it     3" in out
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train_rsl.main(args + ["--recurrent"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train_rsl.main(["--task", "a1_velocity", "--device", "cpu"])
+    # --recurrent: the LSTM runner at its own widths, no checkpoints
+    from gennbv_tpu_torch.algo.ppo_recurrent import RecurrentOnPolicyRunner
+    rec = train_rsl.main(args + ["--recurrent", "--max_iterations", "1"])
+    assert isinstance(rec, RecurrentOnPolicyRunner) and rec.iteration == 1
+    assert rec.model.rnn_type == "lstm" and rec.model.rnn_hidden == 256
+    assert train_rsl.newest_checkpoint(log_dir).endswith("model_3.pt")
+    # the default task, a1_velocity
+    a1 = train_rsl.main(["--num_envs", "8", "--num_steps_per_env", "4",
+                         "--hidden", "16", "--max_iterations", "1",
+                         "--log_dir", str(tmp_path / "a1"), "--device", "cpu"])
+    assert a1.env.num_actions == 12 and a1.iteration == 1
+    assert "task=a1_velocity envs=8 obs=48 act=12" in capsys.readouterr().out
     assert train_rsl.parse_args([]).device == "cuda"
+    assert train_rsl.parse_args([]).task == "a1_velocity"
 
 
 def test_newest_checkpoint_orders_by_iteration(tmp_path):

@@ -247,8 +247,22 @@ def test_export_policy_round_trip_and_recurrent_refusal(tmp_path):
     with torch.no_grad():
         want = distributions.mode(policy(obs).logits)
     assert torch.equal(play.load_exported_policy(path)(obs), want)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        play.export_recurrent_policy(None, None, obs_dim, path)
+    # the recurrent actor's export (tests/test_torch_recurrent.py holds it
+    # step by step): a program with the hidden state in its signature
+    from gennbv_tpu_torch.models.actor_critic import (RecurrentActorCritic,
+                                                      hidden_leaves)
+    rec = RecurrentActorCritic(48, 12, 32, actor_hidden=(32,),
+                               critic_hidden=(32,), device="cpu",
+                               generator=torch.Generator().manual_seed(3))
+    rec_path = str(tmp_path / "recurrent.pt2")
+    assert play.export_recurrent_policy(rec, 48, rec_path, batch=3) > 1000
+    leaves = hidden_leaves(rec.initial_state(3))
+    rec_obs = torch.randn(3, 48, generator=torch.Generator().manual_seed(4))
+    mean, *new_leaves = play.load_exported_policy(rec_path)(rec_obs, *leaves)
+    with torch.no_grad():
+        out, hidden = rec(rec_obs, rec.initial_state(3))
+    torch.testing.assert_close(mean, out.mean, rtol=1e-5, atol=1e-6)
+    assert len(new_leaves) == 4
 
 
 def test_save_ply_and_episode_video_recorder(tmp_path):

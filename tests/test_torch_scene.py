@@ -28,13 +28,18 @@ def test_generate_procedural_bit_equal(num_scenes, grid_res):
 
 
 def test_unported_datasets_raise(tmp_path):
-    """Terrain waits for Queue 1 item 11 (with env/terrain.py); a dataset
-    directory loads (tests/test_torch_dataset.py holds both forms to the
-    JAX package), and so do the objects and convex families
+    """Every dataset the JAX package's make_scenes takes loads: the terrain
+    family (tests/test_torch_terrain.py holds it bit-equal to the JAX
+    package), a dataset directory (tests/test_torch_dataset.py holds both
+    forms to the JAX package), and the objects and convex families
     (tests/test_torch_chamfer.py holds them to the JAX generator)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        pt_scene.make_scenes(SceneConfig(num_scenes=1, dataset="terrain"), 16,
-                             "cpu")
+    from gennbv_tpu.env.terrain import generate_terrain
+    terrain = pt_scene.make_scenes(SceneConfig(num_scenes=1, dataset="terrain"),
+                                   16, "cpu")
+    want = generate_terrain(JaxSceneConfig(num_scenes=1, dataset="terrain"), 16)
+    assert terrain.num_scenes == 1 and terrain.grid_res == 16
+    np.testing.assert_array_equal(terrain.render_occ.numpy(),
+                                  np.asarray(want.render_occ))
     src = pt_scene.generate_procedural(SceneConfig(num_scenes=2, seed=3), 16,
                                        device="cpu")
     g = src.grid_size

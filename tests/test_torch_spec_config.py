@@ -79,13 +79,15 @@ def test_bad_impl_name_rejected():
         pt_config.RendererConfig(gather_impl="fused")
 
 
-# the modules of the continuous-control slice, each the JAX package's
-# module of the same path
+# the modules of the continuous-control slices (the drone, then the legged
+# robots, terrain, the recurrent family and the torsos), each the JAX
+# package's module of the same path
 CONTINUOUS_MODULES = (
     "utils.normalizer", "env.synthetic", "utils.env_checker", "env.wrappers",
     "utils.math", "models.gaussian", "models.actor_critic",
     "algo.ppo_continuous", "algo.on_policy_runner", "env.drone_robot",
-    "registry", "train.train_rsl")
+    "registry", "train.train_rsl", "env.legged_robot", "env.terrain",
+    "models.torso", "algo.ppo_recurrent")
 
 
 def test_package_imports_without_jax():
@@ -130,7 +132,13 @@ def test_continuous_modules_mirror_the_jax_package():
                                    "env.synthetic.GoalPointEnv",
                                    "models.actor_critic.GaussianActorCritic",
                                    "utils.normalizer.init",
-                                   "registry.make_env"])
+                                   "registry.make_env",
+                                   "env.legged_robot.LeggedRobot",
+                                   "env.terrain.generate_terrain",
+                                   "models.actor_critic.RecurrentActorCritic",
+                                   "models.torso.NatureCNN",
+                                   "models.torso.MlpTorso",
+                                   "models.torso.CnnPolicy"])
 def test_entry_points_build_on_the_card_by_default(entry):
     """The port's entry points run on the card unless the caller asks for
     the CPU (the CPU tests pass device="cpu")."""

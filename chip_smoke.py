@@ -146,6 +146,36 @@ Phases, in order; any failure raises and the script exits non-zero:
       policy: each kernel launched exactly once a reset and a step,
       finite coverage, envs 0-1 bit-equal to the CPU step by step (as
       phase 9); prints Q, env-steps/s and peak memory.
+13. the off-policy family and the all-families example, which launch
+   none of the three kernels, each part's seconds printed:
+   a. SAC, TD3 and DDPG through OffPolicyRunner on 4,096 drones at the
+      default OffPolicyConfig (MLPs 256-256, batch 256, a buffer of
+      131,072 = 32 x 4,096, learning_starts 1,000, tau 0.005),
+      learn(64, chunk=16): the first chunk random, then 48 gradient
+      steps.  Checks that every metric and parameter is finite, that the
+      actor, critic and targets moved (and SAC's alpha), the step count
+      and the buffer's pos and size, that no kernel launched, that a
+      second runner from the seed ends with the same parameters,
+      targets, Adam states, log_alpha and buffer bit for bit with its
+      actor moved on exactly the gradient steps where it should (TD3:
+      step % 2 == 0), and that one update on the card agrees with the
+      same update on the CPU within tests/test_torch_off_policy.py's
+      tolerances; prints the random and the learning chunks' env-steps/s,
+      gradient steps/s, ms an update, device activities, device busy and
+      host time per env step of 4 learning steps (torch.profiler), the
+      host's busiest operators, and peak memory;
+   b. DQN through DQNRunner on IdentityEnvMultiDiscrete(nvec=(4,)) at
+      4,096 envs and the default DQNConfig (batch 128, a buffer of
+      65,536, a target sync every 250 gradient steps), learn(320,
+      chunk=64): the same checks, the target equal to the online network
+      just after the sync and unmoved between syncs;
+   c. HER through HERRunner (the default SAC config) on
+      GoalPointEnv(dim=2, ep_length=8, terminate_on_success=True) at 1,024
+      envs, capacity_episodes 4,096, 6 rounds: the same checks, and
+      segment_ends and one relabeled sample on the card equal to the
+      CPU's bit for bit from the same draws;
+   d. python -m gennbv_tpu_torch.examples.custom_env_families run whole
+      on the card: every number it prints finite.
 The meshes are converted before phase 3, which times the kernels at
 their Q.  The last two lines of stdout are the kernel summary with the card's name
 and power limit before them, then the result line
@@ -159,10 +189,13 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -173,7 +206,9 @@ import numpy as np
 import torch
 
 from gennbv_tpu_torch import config, spec
-from gennbv_tpu_torch.algo import evaluation, gae, on_policy_runner, ppo, rollout
+from gennbv_tpu_torch.algo import (dqn, evaluation, gae, her, off_policy,
+                                   on_policy_runner, ppo, rollout)
+from gennbv_tpu_torch.algo import replay_buffer as rb
 from gennbv_tpu_torch.algo import ppo_continuous as ppoc
 from gennbv_tpu_torch.algo import ppo_recurrent
 from gennbv_tpu_torch.algo.repro import first_difference, read_logged, snapshot
@@ -183,6 +218,7 @@ from gennbv_tpu_torch.env import scene as scene_lib
 from gennbv_tpu_torch.env import legged_robot
 from gennbv_tpu_torch.env.drone_robot import DroneRobot
 from gennbv_tpu_torch.env.legged_robot import LeggedRobot
+from gennbv_tpu_torch.env.synthetic import GoalPointEnv, IdentityEnvMultiDiscrete
 from gennbv_tpu_torch.env.depth_sources import (CallbackDepthSource,
                                                 ReplayBank,
                                                 ReplayDepthSource,
@@ -194,6 +230,7 @@ from gennbv_tpu_torch.models import distributions
 from gennbv_tpu_torch.ops import (_cuda, backproject, camera, carve, fp32,
                                   fused_splat, gather, render, scatter, splat,
                                   voxel)
+from gennbv_tpu_torch.examples import custom_env_families
 from gennbv_tpu_torch.tools import convert_dataset, post_run
 from gennbv_tpu_torch.train import play, train_eval_gennbv, train_rsl
 
@@ -237,6 +274,17 @@ LEGGED_FIELDS = ("pos", "quat", "lin_vel", "ang_vel", "q", "qd", "commands",
 # most 3 ulps of s (3 * 2^-24), which the gain turns into <= 7.9e-3, and
 # each side rounds the product (ulp 2^-8) once: 2^-7 + 2^-8 on the circle
 CARD_HASH_BOUND = 2.0 ** -7 + 2.0 ** -8
+# phase 13: the off-policy runners' envs, env steps and chunk, the steps
+# profiled; DQN's env steps and chunk (one target sync); HER's envs, buffer
+# rounds and rounds
+OFF_ENVS, OFF_STEPS, OFF_CHUNK, OFF_PROFILE_STEPS = 4096, 64, 16, 4
+DQN_STEPS, DQN_CHUNK = 320, 64
+HER_ENVS, HER_CAPACITY, HER_ROUNDS = 1024, 4096, 6
+# tests/test_torch_off_policy.py's tolerances of an update: parameters,
+# moments (relative, plus a share of the tensor's largest) and metrics
+OP_PARAM_ATOL, OP_MOMENT_RTOL = 1e-6, 1e-4
+OP_MOMENT_SHARE = {"mu": 2e-5, "nu": 4e-5}
+OP_METRIC_RTOL, OP_METRIC_ATOL = 1e-5, 1e-6
 # tests/test_torch_drone.py's tolerance of the drone's state and obs, and
 # tests/test_torch_continuous.py's of the MLP forward
 DRONE_RTOL, DRONE_ATOL = 1e-5, 1e-5
@@ -2301,6 +2349,505 @@ def phase_12(card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the off-policy family (SAC, TD3, DDPG, DQN, HER) and the
+# all-families example
+
+
+def to_device(x, device):
+    """`x` (tensors in NamedTuples, dicts, lists) with every tensor copied
+    to `device`; ints, floats and None as they are."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: to_device(v, device) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(to_device(v, device) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_device(v, device) for v in x)
+    return x
+
+
+def flat_state(x, prefix: str = "", out: dict | None = None) -> dict:
+    """Every tensor and number of `x` (NamedTuples, dicts) by its path,
+    copied."""
+    out = {} if out is None else out
+    if isinstance(x, torch.Tensor):
+        out[prefix] = x.detach().clone()
+    elif isinstance(x, dict):
+        for k, v in x.items():
+            flat_state(v, f"{prefix}.{k}", out)
+    elif isinstance(x, tuple) and hasattr(x, "_fields"):
+        for f in x._fields:
+            flat_state(getattr(x, f), f"{prefix}.{f}", out)
+    elif isinstance(x, (int, float)):
+        out[prefix] = torch.tensor(x)
+    return out
+
+
+def _first_unequal(a: dict, b: dict) -> str | None:
+    if list(a) != list(b):
+        return "the state's layout"
+    return next((k for k in a if not torch.equal(a[k], b[k])), None)
+
+
+def _state_groups(st) -> dict:
+    """The parameter groups of an off-policy or DQN state, each with the
+    Adam state whose first moments mark its noise entries."""
+    if isinstance(st, dqn.DQNState):
+        return {"q": (st.params, st.opt_state),
+                "target q": (st.target_params, st.opt_state)}
+    return {"actor": (st.actor_params, st.actor_opt),
+            "critic": (st.critic_params, st.critic_opt),
+            "target actor": (st.target_actor_params, st.actor_opt),
+            "target critic": (st.target_critic_params, st.critic_opt),
+            "log_alpha": ({"log_alpha": st.log_alpha}, st.alpha_opt)}
+
+
+def held_update(label: str, got, want, lr: float) -> float:
+    """Raises unless the state `got` after one update on the card agrees
+    with `want`, the same update's on the CPU, within
+    tests/test_torch_off_policy.py's tolerances (parameters OP_PARAM_ATOL,
+    moments OP_MOMENT_RTOL plus a share of the tensor's largest; an entry
+    whose first moment lies inside that share is float32 cancellation
+    noise, which Adam's first steps turn into up to lr, and is held to lr
+    and its moments to the share); returns the largest parameter
+    difference."""
+    worst = 0.0
+    want_groups = _state_groups(want)
+    for name, (gp, gopt) in _state_groups(got).items():
+        wp, wopt = want_groups[name]
+        if gopt.count != wopt.count:
+            raise AssertionError(f"{label}: {name} Adam count {gopt.count} "
+                                 f"against {wopt.count}")
+        for k, w in wp.items():
+            mu = wopt.mu[k].abs()
+            noisy = mu <= OP_MOMENT_SHARE["mu"] * mu.max()
+            err = (gp[k].cpu() - w).abs()
+            if (err > torch.where(noisy, lr, OP_PARAM_ATOL)).any():
+                raise AssertionError(f"{label}: {name} {k} differs from the "
+                                     f"CPU by {float(err.max()):.3g}")
+            worst = max(worst, float(err.max()))
+            for moment in ("mu", "nu"):
+                wm = getattr(wopt, moment)[k]
+                band = OP_MOMENT_SHARE[moment] * float(wm.abs().max())
+                tol = torch.where(noisy, 2 * band, OP_MOMENT_RTOL * wm.abs() + band)
+                merr = (getattr(gopt, moment)[k].cpu() - wm).abs()
+                if (merr > tol).any():
+                    raise AssertionError(
+                        f"{label}: {name} Adam {moment} {k} differs from the "
+                        f"CPU by {float(merr.max()):.3g}")
+    return worst
+
+
+def _held_metrics(label: str, got: dict, want: dict) -> None:
+    for k, w in want.items():
+        np.testing.assert_allclose(float(got[k]), float(w), rtol=OP_METRIC_RTOL,
+                                   atol=OP_METRIC_ATOL, err_msg=f"{label}: {k}")
+
+
+def offpolicy_update_on_cpu(label: str, learner, st, batch, noises) -> float:
+    """One update of `learner`'s algorithm from `st` on `batch` with
+    `noises`, on the card and on the CPU: held_update and the metrics
+    within OP_METRIC_RTOL/ATOL."""
+    cpu = off_policy.OffPolicyLearner(learner.cfg, learner.obs_dim,
+                                      learner.action_dim,
+                                      torch.Generator().manual_seed(0))
+    got, got_m = learner.update(st, batch, *noises)
+    want, want_m = cpu.update(*to_device((st, batch, *noises), "cpu"))
+    _held_metrics(label, got_m, want_m)
+    return held_update(label, got, want, learner.cfg.learning_rate)
+
+
+def dqn_update_on_cpu(label: str, runner, st, batch) -> float:
+    cpu = dqn.DQNRunner(IdentityEnvMultiDiscrete(nvec=runner.env.nvec,
+                                                 device="cpu"),
+                        runner.cfg, runner.num_envs)
+    return held_update(label, runner.update(st, batch),
+                       cpu.update(*to_device((st, batch), "cpu")),
+                       runner.cfg.learning_rate)
+
+
+def _all_finite(label: str, tensors: dict) -> None:
+    bad = [k for k, v in tensors.items()
+           if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+    if bad:
+        raise AssertionError(f"{label}: non-finite {bad[:5]}")
+
+
+def _moved(label: str, before: dict, after: dict, prefixes) -> None:
+    for p in prefixes:
+        keys = [k for k in before if k.startswith(p)]
+        if not keys or all(torch.equal(before[k], after[k]) for k in keys):
+            raise AssertionError(f"{label}: {p} did not move")
+
+
+def _timed_chunks(runner) -> list:
+    """Wraps runner._chunk to record each chunk's wall seconds (ended by a
+    device synchronize) and whether it acted at random."""
+    record, chunk = [], runner._chunk
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        res = chunk(*args)
+        torch.cuda.synchronize()
+        record.append((time.perf_counter() - t0, bool(args[3:] and args[3])))
+        return res
+
+    runner._chunk = timed
+    return record
+
+
+def _ms_per_update(update, calls: int = 20) -> float:
+    """Wall ms of `calls` updates back to back (each feeding the next),
+    ended by a device synchronize."""
+    update()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        update()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def _profile_chunk(card: str, label: str, runner, reset_obs, *extra) -> None:
+    """OFF_PROFILE_STEPS learning env steps of `runner` (each with its
+    gradient step), timed and then under the profiler: device activities
+    and device busy time per env step."""
+    env_state, obs = reset_obs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    env_state, obs, _ = runner._chunk(env_state, obs, OFF_PROFILE_STEPS, *extra)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    res = profile(f"{label}: {OFF_PROFILE_STEPS} env steps with their "
+                  "gradient steps",
+                  lambda: runner._chunk(env_state, obs, OFF_PROFILE_STEPS,
+                                        *extra)[2].item(), secs)
+    print(f"{label}: {res['activities'] / OFF_PROFILE_STEPS:.1f} device "
+          f"activities and {res['busy_ms'] / OFF_PROFILE_STEPS:.3f} ms device "
+          f"busy per env step, {secs / OFF_PROFILE_STEPS * 1e3:.3f} ms wall "
+          f"unprofiled [{card}]")
+    # where the host's time goes: the operators' own host time under a
+    # host-only profile (which adds its own cost to each)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        runner._chunk(env_state, obs, OFF_PROFILE_STEPS, *extra)[2].item()
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    total = sum(e.self_cpu_time_total for e in ops)
+    print(f"{label}: host time per env step under a host-only profile "
+          f"{total / OFF_PROFILE_STEPS / 1e3:.3f} ms; most by operator: "
+          + ", ".join(f"{e.key} {e.self_cpu_time_total / OFF_PROFILE_STEPS / 1e3:.3f}"
+                      f" ms ({e.count / OFF_PROFILE_STEPS:g} calls)"
+                      for e in ops[:8]) + f" [{card}]")
+
+
+def phase_offpolicy(card: str, algo: str) -> dict:
+    """SAC, TD3 or DDPG through OffPolicyRunner on OFF_ENVS drones at the
+    default OffPolicyConfig, learn(OFF_STEPS, chunk=OFF_CHUNK); returns
+    each kernel's launches in that run (all 0)."""
+    label = algo
+    cfg = off_policy.OffPolicyConfig(algo=algo)
+    runner = off_policy.OffPolicyRunner(DroneRobot(), cfg, OFF_ENVS, seed=1)
+    before = flat_state(runner.learner.state, "state")
+    chunks = _timed_chunks(runner)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mean_rew = runner.learn(OFF_STEPS, chunk=OFF_CHUNK)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()):
+        raise AssertionError(f"{label} launched {counts}, expected none")
+    st, buf = runner.learner.state, runner.buffer
+    grad_steps = OFF_STEPS - OFF_CHUNK           # the first chunk is random
+    written = OFF_STEPS * OFF_ENVS
+    if (st.step, buf.pos, buf.size) != (grad_steps,
+                                        written % cfg.buffer_capacity,
+                                        min(written, cfg.buffer_capacity)):
+        raise AssertionError(f"{label}: step {st.step}, buffer pos {buf.pos} "
+                             f"size {buf.size}")
+    after = flat_state(st, "state")
+    _all_finite(label, {**after, **{f"metric {k}": v.reshape(1)
+                                    for k, v in runner.metrics.items()},
+                        "mean reward": torch.tensor([mean_rew])})
+    _moved(label, before, after, ("state.actor_params", "state.critic_params",
+                                  "state.target_actor_params",
+                                  "state.target_critic_params"))
+    alpha = float(runner.metrics["alpha"])
+    if algo == "sac" and alpha == 1.0:
+        raise AssertionError(f"{label}: alpha did not move")
+    rand_s = sum(s for s, r in chunks if r)
+    learn_s = sum(s for s, r in chunks if not r)
+    print(f"{label}: learn({OFF_STEPS}, chunk={OFF_CHUNK}) on {OFF_ENVS} drones "
+          f"(MLPs 256-256, batch {cfg.batch_size}, buffer "
+          f"{cfg.buffer_capacity}) in {secs:.3f} s: the random chunk "
+          f"{OFF_CHUNK * OFF_ENVS / rand_s:.1f} env-steps/s, the learning "
+          f"chunks {grad_steps * OFF_ENVS / learn_s:.1f} env-steps/s and "
+          f"{grad_steps / learn_s:.1f} gradient steps/s; mean reward "
+          f"{mean_rew:.4f}, critic loss "
+          f"{float(runner.metrics['critic_loss']):.4g}, alpha {alpha:.4f}; "
+          f"step {st.step}, buffer pos {buf.pos} size {buf.size}; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB [{card}]")
+    snap = {**after, **flat_state(buf, "buffer")}
+
+    # one update on the card and on the CPU from the same state and draws
+    learner = runner.learner
+    batch = rb.sample(buf, runner.generator, cfg.batch_size)
+    noises = learner.draw_noises(cfg.batch_size, runner.generator)
+    worst = offpolicy_update_on_cpu(label, learner, st, batch, noises)
+    ms = _ms_per_update(lambda: learner.update(st, batch, *noises))
+    print(f"{label}: an update on the card agrees with the CPU's (max "
+          f"parameter difference {worst:.3g}); {ms:.3f} ms an update "
+          f"(wall, {cfg.batch_size} rows) [{card}]")
+    reset = runner.env.reset(OFF_ENVS, runner.generator)
+    _profile_chunk(card, label, runner, (reset[0], reset[1].obs), False)
+
+    # a second runner from seed 1; TD3's actor moves on even steps only
+    second = off_policy.OffPolicyRunner(DroneRobot(), cfg, OFF_ENVS, seed=1)
+    update, moved = second.learner.update, []
+
+    def spy(s, *args):
+        new, metrics = update(s, *args)
+        moved.append((s.step, not all(torch.equal(new.actor_params[k], v)
+                                      for k, v in s.actor_params.items())))
+        return new, metrics
+
+    second.learner.update = spy
+    second.learn(OFF_STEPS, chunk=OFF_CHUNK)
+    expect = [(k, algo != "td3" or k % cfg.policy_delay == 0)
+              for k in range(grad_steps)]
+    if moved != expect:
+        raise AssertionError(f"{label}: the actor moved at {moved}")
+    diff = _first_unequal(snap, {**flat_state(second.learner.state, "state"),
+                                 **flat_state(second.buffer, "buffer")})
+    if diff:
+        raise AssertionError(f"{label}: a second runner from seed 1 differs "
+                             f"first in {diff}")
+    print(f"{label}: a second OffPolicyRunner from seed 1 ends with the same "
+          "parameters, targets, Adam states, log_alpha and buffer, bit for "
+          f"bit; its actor moved on {sum(m for _, m in moved)} of {grad_steps} "
+          f"gradient steps [{card}]")
+    return counts
+
+
+def phase_dqn(card: str) -> dict:
+    """DQNRunner on IdentityEnvMultiDiscrete(nvec=(4,)) at OFF_ENVS envs and
+    the default DQNConfig, learn(DQN_STEPS, chunk=DQN_CHUNK), across a
+    target sync; returns each kernel's launches in that run (all 0)."""
+    label = "dqn"
+    cfg = dqn.DQNConfig()
+    runner = dqn.DQNRunner(IdentityEnvMultiDiscrete(nvec=(4,)), cfg, OFF_ENVS,
+                           seed=1)
+    before = flat_state(runner.state, "state")
+    chunks = _timed_chunks(runner)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mean_rew = runner.learn(DQN_STEPS, chunk=DQN_CHUNK)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()):
+        raise AssertionError(f"{label} launched {counts}, expected none")
+    st, buf = runner.state, runner.buffer
+    written = DQN_STEPS * OFF_ENVS
+    # a gradient step from the first env step that fills learning_starts
+    grad_steps = DQN_STEPS + 1 - math.ceil(cfg.learning_starts / OFF_ENVS)
+    if (st.grad_steps, st.env_steps, buf.pos, buf.size) != (
+            grad_steps, written, written % cfg.buffer_capacity,
+            min(written, cfg.buffer_capacity)):
+        raise AssertionError(f"{label}: {st.grad_steps} gradient steps, "
+                             f"{st.env_steps} env steps, buffer pos {buf.pos} "
+                             f"size {buf.size}")
+    after = flat_state(st, "state")
+    _all_finite(label, {**after, "mean reward": torch.tensor([mean_rew])})
+    _moved(label, before, after, ("state.params", "state.target_params"))
+    learn_s = sum(s for s, _ in chunks)
+    print(f"{label}: learn({DQN_STEPS}, chunk={DQN_CHUNK}) on {OFF_ENVS} envs "
+          f"(MLP 256-256, batch {cfg.batch_size}, buffer {cfg.buffer_capacity}, "
+          f"a sync every {cfg.target_update_interval} gradient steps) in "
+          f"{secs:.3f} s: {written / learn_s:.1f} env-steps/s, "
+          f"{grad_steps / learn_s:.1f} gradient steps/s; mean reward "
+          f"{mean_rew:.4f}; peak memory {peak / 2 ** 30:.3f} GiB [{card}]")
+    snap = {**after, **flat_state(buf, "buffer")}
+
+    batch = rb.sample(buf, runner.generator, cfg.batch_size)
+    worst = dqn_update_on_cpu(label, runner, st, batch)
+    ms = _ms_per_update(lambda: runner.update(st, batch))
+    print(f"{label}: an update on the card agrees with the CPU's (max "
+          f"parameter difference {worst:.3g}); {ms:.3f} ms an update (wall, "
+          f"{cfg.batch_size} rows) [{card}]")
+    reset = runner.env.reset(OFF_ENVS, runner.generator)
+    _profile_chunk(card, label, runner, (reset[0], reset[1].obs))
+
+    # a second runner from seed 1: the target equals the online network
+    # just after each sync and stays put between syncs
+    second = dqn.DQNRunner(IdentityEnvMultiDiscrete(nvec=(4,)), cfg, OFF_ENVS,
+                           seed=1)
+    update, syncs = second.update, []
+
+    def spy(s, *args):
+        new = update(s, *args)
+        if new.grad_steps % cfg.target_update_interval == 0:
+            if not all(torch.equal(new.target_params[k], v)
+                       for k, v in new.params.items()):
+                raise AssertionError(f"{label}: the target after the sync at "
+                                     f"{new.grad_steps}")
+            syncs.append(new.grad_steps)
+        elif new.target_params is not s.target_params:
+            raise AssertionError(f"{label}: the target moved at "
+                                 f"{new.grad_steps}")
+        return new
+
+    second.update = spy
+    second.learn(DQN_STEPS, chunk=DQN_CHUNK)
+    if syncs != list(range(cfg.target_update_interval, grad_steps + 1,
+                           cfg.target_update_interval)):
+        raise AssertionError(f"{label}: syncs at {syncs}")
+    diff = _first_unequal(snap, {**flat_state(second.state, "state"),
+                                 **flat_state(second.buffer, "buffer")})
+    if diff:
+        raise AssertionError(f"{label}: a second runner from seed 1 differs "
+                             f"first in {diff}")
+    print(f"{label}: a second DQNRunner from seed 1 ends with the same "
+          "parameters, target, Adam state and buffer, bit for bit; the target "
+          f"equalled the online network just after the syncs at {syncs} "
+          f"[{card}]")
+    return counts
+
+
+def phase_her(card: str) -> dict:
+    """HERRunner (the default SAC config) on GoalPointEnv(dim=2,
+    ep_length=8, terminate_on_success=True) at HER_ENVS envs, HER_ROUNDS
+    rounds; returns each kernel's launches in that run (all 0)."""
+    label = "her"
+    cfg = off_policy.OffPolicyConfig()
+    her_cfg = her.HERConfig()
+
+    def make():
+        env = GoalPointEnv(dim=2, ep_length=8, terminate_on_success=True)
+        return her.HERRunner(env, cfg, her_cfg, HER_ENVS,
+                             capacity_episodes=HER_CAPACITY, seed=1)
+
+    runner = make()
+    before = flat_state(runner.learner.state, "state")
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner.learn(HER_ROUNDS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()):
+        raise AssertionError(f"{label} launched {counts}, expected none")
+    env, st, buf = runner.env, runner.learner.state, runner.buffer
+    ready = [r for r in range(HER_ROUNDS)
+             if r * HER_ENVS * env.ep_length >= cfg.learning_starts]
+    grad_steps = len(ready) * runner.updates_per_round
+    rounds = HER_ROUNDS * HER_ENVS
+    if (st.step, buf.pos, buf.size) != (grad_steps, rounds % HER_CAPACITY,
+                                        min(rounds, HER_CAPACITY)):
+        raise AssertionError(f"{label}: step {st.step}, buffer pos {buf.pos} "
+                             f"size {buf.size}")
+    after = flat_state(st, "state")
+    _all_finite(label, {**after, **{f"metric {k}": v.reshape(1)
+                                    for k, v in runner.metrics.items()}})
+    _moved(label, before, after, ("state.actor_params", "state.critic_params"))
+    ended_early = float((buf.done[:, :-1] > 0.5).float().mean())
+    print(f"{label}: {HER_ROUNDS} rounds of {HER_ENVS} envs x {env.ep_length} "
+          f"steps ({grad_steps} gradient steps, buffer of {HER_CAPACITY} "
+          f"rounds) in {secs:.3f} s: "
+          f"{HER_ROUNDS * HER_ENVS * env.ep_length / secs:.1f} env-steps/s; "
+          f"{100 * ended_early:.2f}% of steps before the last end an episode; "
+          f"peak memory {peak / 2 ** 30:.3f} GiB [{card}]")
+
+    # segment ends and a relabeled sample on the card, bit-equal to the CPU
+    cpu_env = GoalPointEnv(dim=2, ep_length=8, terminate_on_success=True,
+                           device="cpu")
+    if not torch.equal(her.segment_ends(buf.done).cpu(),
+                       her.segment_ends(buf.done.cpu())):
+        raise AssertionError(f"{label}: segment_ends on the card")
+    if not torch.equal(buf.seg_end.cpu(), her.segment_ends(buf.done.cpu())):
+        raise AssertionError(f"{label}: the buffer's segment ends")
+    draws = her.draw_relabel_indices(buf.size, cfg.batch_size, env.ep_length,
+                                     runner.generator)
+    got = her.relabel(buf, draws, env.goal_dim, env.compute_reward, her_cfg)
+    want = her.relabel(to_device(buf, "cpu"), to_device(draws, "cpu"),
+                       env.goal_dim, cpu_env.compute_reward, her_cfg)
+    for f in rb.Batch._fields:
+        if not torch.equal(getattr(got, f).cpu(), getattr(want, f)):
+            raise AssertionError(f"{label}: relabel's {f} on the card")
+    relabeled = float((draws.u < her_cfg.future_fraction).float().mean())
+    print(f"{label}: segment_ends of the {buf.size} rounds and a relabeled "
+          f"sample of {cfg.batch_size} ({100 * relabeled:.1f}% relabeled) on "
+          f"the card equal the CPU's, bit for bit [{card}]")
+
+    second = make()
+    second.learn(HER_ROUNDS)
+    diff = _first_unequal(
+        {**after, **flat_state(buf, "buffer")},
+        {**flat_state(second.learner.state, "state"),
+         **flat_state(second.buffer, "buffer")})
+    if diff:
+        raise AssertionError(f"{label}: a second runner from seed 1 differs "
+                             f"first in {diff}")
+    print(f"{label}: a second HERRunner from seed 1 ends with the same "
+          f"parameters, targets, Adam states and buffer, bit for bit [{card}]")
+    return counts
+
+
+def phase_example(card: str) -> dict:
+    """gennbv_tpu_torch.examples.custom_env_families run whole on the card:
+    every number it prints finite; returns each kernel's launches (all
+    0)."""
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        custom_env_families.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches()
+    lines = out.getvalue().splitlines()
+    numbers = [float(x) for line in lines for x in re.findall(
+        r"[-+]?(?:\d+\.?\d*(?:[eE][-+]?\d+)?|nan|inf)", line)]
+    if (len(lines) != 6 or not numbers
+            or not all(math.isfinite(x) for x in numbers)):
+        raise AssertionError(f"example: printed {lines}")
+    if any(counts.values()):
+        raise AssertionError(f"example launched {counts}, expected none")
+    for line in lines:
+        print(f"example: {line}")
+    print(f"example: custom_env_families ran on the card in {secs:.3f} s, "
+          f"{len(numbers)} numbers printed, all finite [{card}]")
+    return counts
+
+
+def phase_13(card: str) -> dict:
+    """Phase 13's parts in turn, each timed; returns each kernel's
+    launches by run."""
+    secs, counts = {}, {}
+    parts = [(algo, lambda c, a=algo: phase_offpolicy(c, a))
+             for algo in ("sac", "td3", "ddpg")]
+    parts += [("dqn", phase_dqn), ("her", phase_her), ("example", phase_example)]
+    for part, run in parts:
+        t0 = time.perf_counter()
+        counts[part] = run(card)
+        secs[part] = time.perf_counter() - t0
+    print(f"phase 13: {sum(secs.values()):.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
+          + f") [{card}]")
+    return counts
+
+
 def phase_cache_pairs(card: str, scenes, pairs: int) -> None:
     """The full-size eval with the init-view cache (zbuf_impl=pallas) and
     without it (mxu), the same kernels on both, in interleaved pairs."""
@@ -2361,12 +2908,14 @@ def main() -> None:
         dataset_counts = phase_dataset(card, dirs, data_root)
         rsl_counts = phase_rsl(card)
         p12_counts = phase_12(card)
+        p13_counts = phase_13(card)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
         shutil.rmtree(data_root, ignore_errors=True)
     by_path = {"rollout": rollout_counts, "eval": eval_counts,
                "train": train_counts, "report": report_counts, **dda_counts,
-               **dataset_counts, "rsl": rsl_counts, **p12_counts}
+               **dataset_counts, "rsl": rsl_counts, **p12_counts,
+               **p13_counts}
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         kernels.append({

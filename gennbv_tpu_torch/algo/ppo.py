@@ -79,11 +79,18 @@ class Optimizer:
 
     @torch.no_grad()
     def apply_(self, params: list, grads: list, mu: list, nu: list,
-               count: int, grad_norm: float) -> int:
+               count: int, grad_norm: float | torch.Tensor | None) -> int:
         """One clipped Adam step, in place on params, grads, mu and nu;
-        `grad_norm` is the global norm of `grads` (``global_norm``).
-        Returns the new count."""
-        if not np.float32(grad_norm) < np.float32(self.max_grad_norm):
+        `grad_norm` is the global norm of `grads` (``global_norm``): a
+        host float, or a device scalar, which clips by a select on the
+        device and never waits for it; None steps without the clip (a
+        plain ``optax.adam``).  Returns the new count."""
+        if isinstance(grad_norm, torch.Tensor):
+            keep = grad_norm < self.max_grad_norm
+            for g in grads:
+                g.copy_(torch.where(keep, g, g / grad_norm * self.max_grad_norm))
+        elif grad_norm is not None and not (
+                np.float32(grad_norm) < np.float32(self.max_grad_norm)):
             torch._foreach_div_(grads, float(grad_norm))
             torch._foreach_mul_(grads, self.max_grad_norm)
         torch._foreach_mul_(mu, self.b1)

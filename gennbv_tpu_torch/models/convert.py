@@ -18,6 +18,10 @@ LSTM and GRU cells' kernels concatenated gate by gate) and the continuous
 learner's optimizer (``algo/ppo_continuous.py``, ``ppo_recurrent.py``).
 ``cnn_policy_to_state_dict`` takes ``models/torso.py``'s ``CnnPolicy``
 (Conv kernel [kH, kW, in, out] -> Conv2d weight [out, in, kH, kW]).
+``off_policy_net_to_state_dict`` takes the off-policy family's networks
+(``models/off_policy_nets.py``); their optimizers' states (a plain
+``optax.adam``, DQN's ``chain(clip_by_global_norm, adam)``) go through
+``jax_opt_state_to_port`` with it.
 """
 from __future__ import annotations
 
@@ -70,11 +74,14 @@ def jax_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return sd
 
 
-def jax_opt_state_to_port(opt_state: Any) -> AdamState:
-    """optax's state of ``ppo.make_optimizer``'s chain -> the port's
-    ``AdamState``: Adam's mu and nu trees take the parameters' key mapping
-    and transposes, and the count is Adam's, which the schedule's count
+def jax_opt_state_to_port(opt_state: Any, params_to_port=None) -> AdamState:
+    """optax's state of ``ppo.make_optimizer``'s chain (or of any chain
+    holding one Adam: a plain ``optax.adam``, ``chain(clip_by_global_norm,
+    adam)``) -> the port's ``AdamState``: Adam's mu and nu trees take the
+    parameters' key mapping and transposes (``params_to_port``, by default
+    the policy's), and the count is Adam's, which the schedule's count
     (when the chain has one) must equal."""
+    params_to_port = params_to_port or _params
     adam, counts = None, []
 
     def walk(node: Any) -> None:
@@ -94,7 +101,22 @@ def jax_opt_state_to_port(opt_state: Any) -> AdamState:
     count = int(np.asarray(adam.count))
     if any(c != count for c in counts):
         raise ValueError(f"schedule counts {counts} differ from Adam's {count}")
-    return AdamState(_params(adam.mu), _params(adam.nu), count)
+    return AdamState(params_to_port(adam.mu), params_to_port(adam.nu), count)
+
+
+def off_policy_net_to_state_dict(params: Mapping[str, Any]
+                                 ) -> dict[str, torch.Tensor]:
+    """The ``params`` of one of ``gennbv_tpu.models.off_policy_nets``'
+    networks (``QCritic``, ``DeterministicActor``,
+    ``SquashedGaussianActor``, ``DiscreteQNet``), or a tree shaped like
+    them (Adam's moments) -> the port's state_dict: every layer is a Dense
+    that keeps its name (``q{k}_{i}``, ``pi_out``, ``mean``, ``log_std``,
+    ...), its kernel [in, out] transposed to a weight [out, in]."""
+    sd: dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        sd[f"{name}.weight"] = _t(p["kernel"]).T.contiguous()
+        sd[f"{name}.bias"] = _t(p["bias"])
+    return sd
 
 
 def gaussian_ac_to_state_dict(params: Mapping[str, Any]

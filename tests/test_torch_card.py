@@ -3,7 +3,8 @@ version, the mapping golden, a rollout and an eval with the kernels in
 use, a PPO update against the same update on the CPU, the train CLI, and
 two trainings from one seed; the drone, the legged robots (plane and
 rough terrain) and the recurrent actor-critic against the CPU, and two
-recurrent trainings from one seed.
+recurrent trainings from one seed; SAC, TD3 and DQN updates and a HER
+relabeled sample against the CPU, and two DQN trainings from one seed.
 They skip on a machine without one.  This file imports no jax, so it
 also runs where jax is missing; tests/conftest.py imports jax, so there run
 it without the conftest:
@@ -631,3 +632,93 @@ def test_recurrent_training_reproduces_itself(cuda):
         snaps.append(snapshot(runner, runner.logged))
     assert snaps[0]["count"] == 40
     assert first_difference(*snaps) is None
+
+
+# ---------------------------------------------------------------------------
+# the off-policy family
+
+
+@pytest.mark.parametrize("algo", ["sac", "td3"])
+def test_off_policy_update_on_card_matches_cpu(cuda, algo):
+    """One update of a fresh learner (obs 17, 4 actions, the default
+    widths and batch) on the card and on the CPU from the same state,
+    batch and noises: tests/test_torch_off_policy.py's tolerances."""
+    import chip_smoke
+    from gennbv_tpu_torch.algo import replay_buffer as rb
+    from gennbv_tpu_torch.algo.off_policy import (OffPolicyConfig,
+                                                  OffPolicyLearner)
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    learner = OffPolicyLearner(OffPolicyConfig(algo=algo), 17, 4, g)
+    n = learner.cfg.batch_size
+    batch = rb.Batch(torch.randn(n, 17, device="cuda", generator=g),
+                     torch.rand(n, 4, device="cuda", generator=g) * 2 - 1,
+                     torch.randn(n, device="cuda", generator=g),
+                     torch.randn(n, 17, device="cuda", generator=g),
+                     (torch.rand(n, device="cuda", generator=g) < 0.1).float())
+    noises = learner.draw_noises(n, g)
+    chip_smoke.offpolicy_update_on_cpu(algo, learner, learner.state, batch,
+                                       noises)
+
+
+def test_dqn_update_on_card_matches_cpu(cuda):
+    import chip_smoke
+    from gennbv_tpu_torch.algo import replay_buffer as rb
+    from gennbv_tpu_torch.algo.dqn import DQNConfig, DQNRunner
+    from gennbv_tpu_torch.env.synthetic import IdentityEnvMultiDiscrete
+
+    runner = DQNRunner(IdentityEnvMultiDiscrete(nvec=(4,)), DQNConfig(), 64)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n = runner.cfg.batch_size
+    obs = torch.eye(4, device="cuda")[torch.randint(0, 4, (2, n), device="cuda",
+                                                    generator=g)]
+    batch = rb.Batch(obs[0], torch.randint(0, 4, (n, 1), device="cuda",
+                                           generator=g, dtype=torch.int32),
+                     torch.rand(n, device="cuda", generator=g), obs[1],
+                     (torch.rand(n, device="cuda", generator=g) < 0.1).float())
+    chip_smoke.dqn_update_on_cpu("dqn", runner, runner.state, batch)
+
+
+def test_dqn_training_reproduces_itself(cuda):
+    """Two DQNRunners from one seed at 1,024 envs, 64 env steps each (a
+    gradient step each, across a target sync at 50): the same parameters,
+    target, Adam state and buffer, bit for bit."""
+    import chip_smoke
+    from gennbv_tpu_torch.algo.dqn import DQNConfig, DQNRunner
+    from gennbv_tpu_torch.env.synthetic import IdentityEnvMultiDiscrete
+
+    snaps = []
+    for _ in range(2):
+        runner = DQNRunner(IdentityEnvMultiDiscrete(nvec=(4,)),
+                           DQNConfig(target_update_interval=50), 1024, seed=1)
+        runner.learn(64, chunk=16)
+        assert runner.state.grad_steps == 64
+        snaps.append({**chip_smoke.flat_state(runner.state, "state"),
+                      **chip_smoke.flat_state(runner.buffer, "buffer")})
+    assert chip_smoke._first_unequal(*snaps) is None
+
+
+def test_sample_relabeled_on_card_matches_cpu(cuda):
+    """A buffer of random rounds with in-round boundaries, relabeled on
+    the card and on the CPU from the same draws: bit for bit."""
+    import chip_smoke
+    from gennbv_tpu_torch.algo import her
+    from gennbv_tpu_torch.env.synthetic import GoalPointEnv
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    buf = her.init_episode_buffer(64, 8, 6, 2, device="cuda")
+    for _ in range(3):
+        done = (torch.rand(32, 8, device="cuda", generator=g) < 0.3).float()
+        buf = her.add_episodes(
+            buf, torch.randn(32, 9, 6, device="cuda", generator=g),
+            torch.rand(32, 8, 2, device="cuda", generator=g) * 2 - 1, done,
+            done * (torch.rand(32, 8, device="cuda", generator=g) < 0.5))
+    assert torch.equal(buf.seg_end.cpu(), her.segment_ends(buf.done.cpu()))
+    draws = her.draw_relabel_indices(buf.size, 512, 8, g)
+    cfg = her.HERConfig()
+    got = her.relabel(buf, draws, 2, GoalPointEnv(dim=2).compute_reward, cfg)
+    want = her.relabel(chip_smoke.to_device(buf, "cpu"),
+                       chip_smoke.to_device(draws, "cpu"), 2,
+                       GoalPointEnv(dim=2, device="cpu").compute_reward, cfg)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f

@@ -80,14 +80,15 @@ def test_bad_impl_name_rejected():
 
 
 # the modules of the continuous-control slices (the drone, then the legged
-# robots, terrain, the recurrent family and the torsos), each the JAX
-# package's module of the same path
+# robots, terrain, the recurrent family and the torsos) and of the
+# off-policy family, each the JAX package's module of the same path
 CONTINUOUS_MODULES = (
     "utils.normalizer", "env.synthetic", "utils.env_checker", "env.wrappers",
     "utils.math", "models.gaussian", "models.actor_critic",
     "algo.ppo_continuous", "algo.on_policy_runner", "env.drone_robot",
     "registry", "train.train_rsl", "env.legged_robot", "env.terrain",
-    "models.torso", "algo.ppo_recurrent")
+    "models.torso", "algo.ppo_recurrent", "models.off_policy_nets",
+    "algo.replay_buffer", "algo.off_policy", "algo.dqn", "algo.her")
 
 
 def test_package_imports_without_jax():
@@ -138,7 +139,13 @@ def test_continuous_modules_mirror_the_jax_package():
                                    "models.actor_critic.RecurrentActorCritic",
                                    "models.torso.NatureCNN",
                                    "models.torso.MlpTorso",
-                                   "models.torso.CnnPolicy"])
+                                   "models.torso.CnnPolicy",
+                                   "models.off_policy_nets.QCritic",
+                                   "models.off_policy_nets.DeterministicActor",
+                                   "models.off_policy_nets.SquashedGaussianActor",
+                                   "models.off_policy_nets.DiscreteQNet",
+                                   "algo.replay_buffer.init",
+                                   "algo.her.init_episode_buffer"])
 def test_entry_points_build_on_the_card_by_default(entry):
     """The port's entry points run on the card unless the caller asks for
     the CPU (the CPU tests pass device="cpu")."""

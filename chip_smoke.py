@@ -176,6 +176,26 @@ Phases, in order; any failure raises and the script exits non-zero:
       CPU's bit for bit from the same draws;
    d. python -m gennbv_tpu_torch.examples.custom_env_families run whole
       on the card: every number it prints finite.
+14. the mesh (parallel/mesh.py), each part's seconds printed:
+   a. the flagship recipe of phase 7 for one iteration (256 envs x 128
+      steps at 128x128, the 5-epoch update), first by a one-process
+      Runner, then twice through the mesh path at runner.num_devices=1:
+      a process group of one over nccl on a FileStore, the update's CUDA
+      graph capturing its collectives.  Checks each kernel's exact launch
+      count, that the rollout metrics equal the one-process run's bit for
+      bit, the update's metrics finite with the same minibatch count, and
+      the second mesh run equal to the first bit for bit; and, for one
+      update of the full-width policy from a fixed 16-step rollout, that
+      the first minibatch's summed gradients, BatchNorm stats and metrics
+      on the mesh agree with one process within tests/test_torch_mesh.py's
+      tolerance.  The whole update's sums in another order diverge over
+      its 1,280 Adam steps, as a one-process run with every advantage one
+      ulp up does: prints both divergences, the iteration's seconds and
+      env-steps/s;
+   b. graft_entry.dryrun_multichip(2) on two ranks sharing the card over
+      gloo, and dryrun_multichip(4) (with its env 2 x model 2 tensor-
+      parallel run) on four CPU ranks over gloo, as DTensor's collectives
+      over gloo crashed on a shared card; prints their seconds.
 The meshes are converted before phase 3, which times the kernels at
 their Q.  The last two lines of stdout are the kernel summary with the card's name
 and power limit before them, then the result line
@@ -199,13 +219,15 @@ import re
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from gennbv_tpu_torch import config, spec
+from gennbv_tpu_torch import config, graft_entry, spec
 from gennbv_tpu_torch.algo import (dqn, evaluation, gae, her, off_policy,
                                    on_policy_runner, ppo, rollout)
 from gennbv_tpu_torch.algo import replay_buffer as rb
@@ -235,6 +257,8 @@ from gennbv_tpu_torch.tools import convert_dataset, post_run
 from gennbv_tpu_torch.train import play, train_eval_gennbv, train_rsl
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# phase 14 reuses tests/test_torch_mesh.py's update case (no jax there)
+sys.path.append(os.path.join(ROOT, "tests"))
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "mapping_golden.npz")
 FLAGSHIP = os.path.join(ROOT, "reports", "r5_refbudget128", "config.json")
 # the JAX package's report of the flagship run: the keys the port's must have
@@ -2848,6 +2872,144 @@ def phase_13(card: str) -> dict:
     return counts
 
 
+# phase 14's iterations at the flagship recipe, and the steps of its
+# full-width update from a fixed rollout
+MESH_ITERS, MESH_UPDATE_STEPS = 1, 16
+
+
+def _mesh_iteration(cfg: config.Config, scenes):
+    runner = Runner(cfg, scenes=scenes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = runner.train(MESH_ITERS, log=False)
+    torch.cuda.synchronize()
+    return runner, metrics, time.perf_counter() - t0
+
+
+def _divergence(got: dict, want: dict, snap: dict, want_snap: dict) -> str:
+    """The update metrics' relative differences and the largest parameter
+    difference over its tensor's scale, as a line."""
+    keys = ("train/policy_gradient_loss", "train/approx_kl",
+            "train/clip_fraction", "train/value_loss")
+    rel = {k.split("/")[1]: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+           for k in keys}
+    params = {k: float((snap["variables"][k] - w).abs().max()
+                       / w.abs().max().clamp_min(1e-30))
+              for k, w in want_snap["variables"].items()
+              if "num_batches" not in k}
+    worst = max(params, key=params.get)
+    return (", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+            + f"; parameters up to {params[worst]:.3g} of a tensor's scale "
+            f"({worst})")
+
+
+@contextlib.contextmanager
+def _advantages_one_ulp_up():
+    """ppo._loss sees every advantage one ulp up: the smallest change of
+    the update's inputs, the control for phase 14's comparison."""
+    real = ppo._loss
+
+    def nudged(policy, cfg, obs, actions, logp, values, adv, ret, mesh=None):
+        return real(policy, cfg, obs, actions, logp, values,
+                    torch.nextafter(adv, torch.full_like(adv, math.inf)), ret,
+                    mesh)
+
+    ppo._loss = nudged
+    try:
+        yield
+    finally:
+        ppo._loss = real
+
+
+def phase_mesh(card: str, scenes) -> dict:
+    """Phase 14: (a) the flagship training iteration through the mesh path
+    at W = 1 over nccl against the one-process Runner and itself, and a
+    full-width minibatch on the mesh against one process; (b)
+    graft_entry.dryrun_multichip on 2 ranks sharing the card over gloo and
+    on 4 CPU ranks (with tensor parallelism).  Returns (a)'s kernel
+    launches."""
+    import torch_mesh_ranks as ranks
+    cfg = train_config()
+    ref, want, ref_secs = _mesh_iteration(cfg, scenes)
+    want_snap = snapshot(ref, [])
+    del ref
+    with _advantages_one_ulp_up():
+        nudged, nudge, _ = _mesh_iteration(cfg, scenes)
+    control = _divergence(nudge, want, snapshot(nudged, []), want_snap)
+    del nudged
+    # one update of the full-width policy from a fixed rollout: its first
+    # minibatch on the mesh against one process
+    small = dataclasses.replace(cfg, ppo=dataclasses.replace(
+        cfg.ppo, n_steps=MESH_UPDATE_STEPS))
+    step_want = ranks.update_case("cuda", small)
+    cfg1 = config.apply_overrides(cfg, ("runner.num_devices=1",))
+    store = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(store, "store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+    try:
+        reset_launches()
+        runner, got, secs = _mesh_iteration(cfg1, scenes)
+        counts = launches()
+        assert runner.mesh is not None and runner.mesh.env_width == 1
+        expect = {name: 1 + MESH_ITERS * cfg.ppo.n_steps for name in KERNELS}
+        if counts != expect:
+            raise AssertionError(f"mesh launched {counts}, expected {expect}")
+        for k in _METRIC_KEYS[:9]:
+            if got[k] != want[k]:
+                raise AssertionError(f"mesh: {k} {got[k]!r} against the "
+                                     f"one-process run's {want[k]!r}")
+        for k in _METRIC_KEYS[9:]:
+            if not math.isfinite(got[k]):
+                raise AssertionError(f"mesh: non-finite {k}")
+        if got["train/n_minibatches"] != want["train/n_minibatches"]:
+            raise AssertionError("mesh: the KL stop came at another minibatch")
+        snap = snapshot(runner, [])
+        divergence = _divergence(got, want, snap, want_snap)
+        del runner
+        twin, again, _ = _mesh_iteration(cfg1, scenes)
+        diff = first_difference(snap, snapshot(twin, []))
+        diff = diff or next((k for k in got if not k.startswith("time/")
+                             and got[k] != again[k]), None)
+        if diff:
+            raise AssertionError(f"mesh: a second W = 1 run from seed "
+                                 f"{cfg.runner.seed} differs first in {diff}")
+        del twin
+        step_got = ranks.update_case("cuda", config.apply_overrides(
+            small, ("runner.num_devices=1",)))
+        ranks.held_step(step_got, step_want)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    steps = cfg.ppo.n_steps * cfg.env.num_envs
+    print(f"mesh: the flagship iteration at W = 1 over nccl in {secs:.3f} s "
+          f"({steps / secs:.1f} env-steps/s; rollout {got['time/rollout']:.3f}"
+          f" + update {got['time/update']:.3f} s; {got['train/n_minibatches']:g}"
+          f" minibatches), one process {ref_secs:.3f} s; rollout metrics "
+          f"bit-equal to the one-process run's, a second run bit-equal "
+          f"[{card}]")
+    print(f"mesh: after {got['train/n_minibatches']:g} Adam steps the update "
+          f"differs from the one-process run's by {divergence}; the "
+          f"one-process run with every advantage one ulp up differs by "
+          f"{control} [{card}]")
+    print(f"mesh: the first minibatch of a full-width update "
+          f"({MESH_UPDATE_STEPS} steps x {cfg.env.num_envs} envs) on the mesh: "
+          f"summed gradients, BatchNorm stats and metrics within "
+          f"tests/test_torch_mesh.py's tolerance of one process [{card}]")
+    # (b): a rank a process; nccl refuses two on one card
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(2, "cuda")
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(4, "cpu")
+    print(f"mesh: dryrun_multichip(2) on the card over gloo {card_s:.1f} s; "
+          f"dryrun_multichip(4) on the CPU over gloo "
+          f"{time.perf_counter() - t0:.1f} s (its tensor-parallel run needs "
+          "DTensor's functional collectives, which crash over gloo on CUDA "
+          f"tensors) [{card}]")
+    return counts
+
+
 def phase_cache_pairs(card: str, scenes, pairs: int) -> None:
     """The full-size eval with the init-view cache (zbuf_impl=pallas) and
     without it (mxu), the same kernels on both, in interleaved pairs."""
@@ -2909,13 +3071,16 @@ def main() -> None:
         rsl_counts = phase_rsl(card)
         p12_counts = phase_12(card)
         p13_counts = phase_13(card)
+        t0 = time.perf_counter()
+        mesh_counts = phase_mesh(card, rollout_scenes)
+        print(f"phase 14: {time.perf_counter() - t0:.1f} s [{card}]")
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
         shutil.rmtree(data_root, ignore_errors=True)
     by_path = {"rollout": rollout_counts, "eval": eval_counts,
                "train": train_counts, "report": report_counts, **dda_counts,
                **dataset_counts, "rsl": rsl_counts, **p12_counts,
-               **p13_counts}
+               **p13_counts, "mesh": mesh_counts}
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         kernels.append({

@@ -9,7 +9,7 @@ and no second forward pass is needed.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -40,13 +40,18 @@ class RolloutStats(NamedTuple):
 @torch.no_grad()
 def collect(env, policy, env_state, obs: torch.Tensor,
             generator: torch.Generator, n_steps: int, gamma: float,
-            obs_dtype: torch.dtype = torch.float32):
+            obs_dtype: torch.dtype = torch.float32,
+            rows: Optional[slice] = None, width: Optional[int] = None):
     """Step `env` n_steps times with actions from ``policy.act(obs,
     generator)``; the policy runs in eval mode (BN running stats) and is
     put back in its previous mode afterwards.  Observations are stored in
     `obs_dtype` (float32, or bfloat16 to halve the rollout's largest
-    buffer; ``runner.obs_dtype``).  Returns (env_state', obs',
-    RolloutBatch, RolloutStats)."""
+    buffer; ``runner.obs_dtype``).  A rank holding envs `rows` of `width`
+    passes both: the actions are drawn at the full width
+    (``distributions.sample``).  Returns (env_state', obs', RolloutBatch,
+    RolloutStats)."""
+    # a slice of the envs (a rank's) passes its place to act
+    place = {} if rows is None else {"rows": rows, "width": width}
     was_training = policy.training
     policy.eval()
     obs_seq = torch.empty((n_steps, *obs.shape), dtype=obs_dtype,
@@ -55,7 +60,7 @@ def collect(env, policy, env_state, obs: torch.Tensor,
     try:
         for t in range(n_steps):
             obs_seq[t] = obs
-            actions, values, logp = policy.act(obs, generator)
+            actions, values, logp = policy.act(obs, generator, **place)
             env_state, out = env.step(env_state, actions)
             steps.append((actions, values, logp, out._replace(obs=None)))
             obs = out.obs

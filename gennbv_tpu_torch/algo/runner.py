@@ -12,6 +12,17 @@ checkpoints see iteration k's parameters, as they do there.  Every random
 draw (initial weights, staggered episode lengths, actions, minibatch
 permutations) comes from one ``torch.Generator`` on the device, seeded
 with ``runner.seed``.
+
+Inside a ``torch.distributed`` process group the Runner is one rank of
+the JAX runner's mesh (``parallel/mesh.py``; ``runner.num_devices``,
+``num_slices``, ``model_axis``): it holds its slice of the envs, a replica
+of the policy (its Linears sharded over a model axis), and the learning
+rate schedule of the global ``num_envs``.  Every draw is made at the full
+env width and each rank keeps its rows, so W ranks compute the
+one-process run split by rows.  The rollout metrics are summed over the
+env axis before they are divided.  Rank 0 logs, evaluates (the eval env
+is unsharded, as in the JAX runner) and writes the checkpoints, which
+hold whole tensors: a checkpoint restores into any mesh or none.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ from gennbv_tpu_torch.config import (EXTERNAL_DEPTH_MODES, Config,
                                      with_camera)
 from gennbv_tpu_torch.env import ReconEnv, make_scenes
 from gennbv_tpu_torch.models.policy import ActorCriticPolicy
+from gennbv_tpu_torch.parallel import mesh as mesh_lib
 from gennbv_tpu_torch.utils import profiling
 from gennbv_tpu_torch.utils.checkpoint import CheckpointManager
 from gennbv_tpu_torch.utils.logger import Logger
@@ -72,6 +84,10 @@ class Runner:
         self.cfg = cfg
         self.eval_dataset = eval_dataset
         self.device = torch.device(device)
+        # the mesh first, as the JAX runner builds it; None for one process
+        self.mesh = mesh_lib.mesh_for(cfg.runner, self.device)
+        self.rank = 0 if self.mesh is None else self.mesh.rank
+        self.rows = mesh_lib.env_rows(cfg.env.num_envs, self.mesh)
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.runner.seed)
 
@@ -79,7 +95,8 @@ class Runner:
             cfg.env.scene, cfg.env.renderer.resolution, self.device)
         self.env = ReconEnv(cfg.env, self.scenes, depth_source)
         self.eval_env = None
-        if eval_scenes is not None:
+        self.evaluates = eval_scenes is not None
+        if eval_scenes is not None and self.rank == 0:
             ev_cfg = eval_env_config(cfg.env)
             if cfg.runner.eval_camera:
                 if cfg.env.renderer.mode in EXTERNAL_DEPTH_MODES:
@@ -91,6 +108,8 @@ class Runner:
             self.eval_env = ReconEnv(ev_cfg, eval_scenes, eval_depth_source)
 
         self.policy = ActorCriticPolicy(cfg.model, self.generator, self.device)
+        mesh_lib.check_replicas(self.policy, self.mesh)
+        mesh_lib.shard_policy(self.policy, self.mesh)
         self.opt = ppo.make_optimizer(cfg.ppo, cfg.env.num_envs)
         self.opt_state = self.opt.init(self.policy)
 
@@ -124,7 +143,7 @@ class Runner:
         with timer.phase("rollout", dev):
             env_state, obs, batch, stats = rollout.collect(
                 self.env, self.policy, env_state, obs, self.generator,
-                cfg.n_steps, cfg.gamma, self.obs_dtype)
+                cfg.n_steps, cfg.gamma, self.obs_dtype, **self._place())
         with timer.phase("gae", dev):
             adv, ret = gae.compute_gae(
                 batch.rewards, batch.values, batch.dones.float(),
@@ -139,36 +158,46 @@ class Runner:
                 self.policy, self.opt, cfg, self.opt_state,
                 flat(batch.obs), flat(batch.actions), flat(batch.log_probs),
                 flat(batch.values), flat(adv), flat(ret), self.generator,
-                num_envs=n)
+                num_envs=self.cfg.env.num_envs, mesh=self.mesh)
 
-        # rollout metrics (reference extras["episode"] keys)
-        n_done = torch.clamp(stats.num_dones.sum(), min=1.0)
-        els = spec.EPISODE_LENGTH_S
-        packed = torch.stack([
-            stats.ep_rew_coverage.sum() / n_done / els,
-            stats.ep_rew_short_path.sum() / n_done / els,
-            stats.ep_rew_termination.sum() / n_done / els,
-            stats.ep_reward.sum() / n_done,
-            stats.ep_length.sum() / n_done,
-            (stats.coverage * stats.num_dones).sum() / n_done,
-            stats.collision.sum() / n_done,
-            stats.num_dones.sum(),
-            batch.rewards.mean(),
+        # rollout metrics (reference extras["episode"] keys): sums over the
+        # env axis, then divided
+        sums = torch.stack([
+            stats.ep_rew_coverage.sum(), stats.ep_rew_short_path.sum(),
+            stats.ep_rew_termination.sum(), stats.ep_reward.sum(),
+            stats.ep_length.sum(), (stats.coverage * stats.num_dones).sum(),
+            stats.collision.sum(), stats.num_dones.sum(), batch.rewards.sum(),
         ]).float()
+        if self.mesh is not None:
+            self.mesh.all_reduce_(sums)
+        n_done = torch.clamp(sums[7], min=1.0)
+        packed = torch.cat([sums[:3] / n_done / spec.EPISODE_LENGTH_S,
+                            sums[3:7] / n_done, sums[7:8],
+                            sums[8:] / (t * self.cfg.env.num_envs)])
         # SB3 logs train/learning_rate each update: the schedule at the
         # count of applied updates
         train = [*upd, self.opt.lr(self.opt_state.count)]
         return env_state, obs, packed, train
 
     # ------------------------------------------------------------------
+    def _place(self) -> dict:
+        """This rank's rows of the full env width, for draws made in full
+        (empty for one process)."""
+        if self.mesh is None:
+            return {}
+        return {"rows": self.rows, "width": self.cfg.env.num_envs}
+
     def setup(self):
         """Reset env; stagger initial episode lengths like the reference
-        (base_class_grid_obs.py:471-475)."""
+        (base_class_grid_obs.py:471-475).  A rank resets its rows of the
+        envs, each on the scene of its global index."""
         n = self.cfg.env.num_envs
-        env_state, out = self.env.reset(n)
+        scene_id = torch.arange(n, device=self.device)[self.rows]
+        env_state, out = self.env.reset(
+            scene_id.numel(), scene_id % self.scenes.num_scenes)
         staggered = torch.randint(
             1, self.cfg.env.max_episode_length, (n,), generator=self.generator,
-            device=self.device, dtype=torch.int32)
+            device=self.device, dtype=torch.int32)[self.rows]
         return env_state._replace(episode_len=staggered), out.obs
 
     def train(self, num_iterations: Optional[int] = None, log: bool = True):
@@ -178,7 +207,11 @@ class Runner:
         iteration's metrics."""
         cfg = self.cfg
         num_iterations = num_iterations or cfg.ppo.total_iters
-        if log and self.logger is None:
+        if log and self.ckpt is None:
+            # every rank saves (a gather under tensor parallelism); rank 0
+            # writes the files
+            self.ckpt = CheckpointManager(os.path.join(self.log_dir, "models"))
+        if log and self.logger is None and self.rank == 0:
             self.logger = Logger(
                 self.log_dir, config={
                     **config_to_dict(cfg),
@@ -187,7 +220,6 @@ class Runner:
                 use_wandb=cfg.runner.wandb,
                 run_name=cfg.runner.experiment_name,
             )
-            self.ckpt = CheckpointManager(os.path.join(self.log_dir, "models"))
 
         env_state, obs = self.setup()
         steps_per_iter = cfg.ppo.n_steps * cfg.env.num_envs
@@ -195,7 +227,8 @@ class Runner:
         for it in range(max(num_iterations - self.iteration, 0)):
             t0 = time.perf_counter()
             # the 2nd iteration (past the first-call costs) when requested
-            with profiling.trace(cfg.runner.profile_dir if it == 1 else None):
+            with profiling.trace(cfg.runner.profile_dir
+                                 if it == 1 and self.rank == 0 else None):
                 env_state, obs, packed, train = self.train_iteration(
                     env_state, obs)
             self.global_step += steps_per_iter
@@ -227,37 +260,24 @@ class Runner:
             metrics["rollout/episode_reward_rolling"] = float(
                 np.mean(self._rew_buffer))
 
-        if self.eval_env is not None and cfg.runner.eval_freq > 0 and (
+        if self.evaluates and cfg.runner.eval_freq > 0 and (
             iteration % cfg.runner.eval_freq == 0
         ):
-            t_eval = time.perf_counter()
-            res = evaluation.evaluate(self.eval_env, self.policy,
-                                      compute_accuracy=cfg.runner.eval_accuracy)
-            metrics["time/eval_seconds"] = time.perf_counter() - t_eval
-            metrics.update({
-                "eval/mean_reward": res.mean_reward,
-                "eval/mean_AUC": res.mean_auc,
-                "eval/mean_ep_length": res.mean_ep_length,
-                "eval/final_coverage": res.mean_final_coverage,
-                "eval/init_coverage": res.mean_init_coverage,
-                "eval/coverage_curve_AUC": res.mean_curve_auc,
-            })
-            if np.isfinite(res.mean_accuracy_cm):
-                metrics["eval/mean_accuracy"] = res.mean_accuracy_cm
-                # the accuracy decomposition (EvalResult)
-                metrics["eval/accuracy_scan2gt"] = res.accuracy_scan2gt
-                metrics["eval/accuracy_gt2scan"] = res.accuracy_gt2scan
-                metrics["eval/accuracy_gt2scan_seen"] = (
-                    res.accuracy_gt2scan_seen)
-                metrics["eval/gt_unseen_frac"] = res.gt_unseen_frac
-                metrics["eval/accuracy_floor_gt_sampling"] = (
-                    res.accuracy_floor_gt_sampling)
+            policy = self._eval_policy()
+            better = False
+            if self.eval_env is not None:
+                t_eval = time.perf_counter()
+                res = evaluation.evaluate(
+                    self.eval_env, policy,
+                    compute_accuracy=cfg.runner.eval_accuracy)
+                metrics["time/eval_seconds"] = time.perf_counter() - t_eval
+                metrics.update(_eval_metrics(res))
+                better = res.mean_final_coverage > self._best_eval
+                if better:
+                    self._best_eval = res.mean_final_coverage
             # best-by-held-out-eval checkpoint (the reference's
-            # EvalCallback best_model, callbacks.py:685-693)
-            if self.ckpt is not None and (
-                res.mean_final_coverage > self._best_eval
-            ):
-                self._best_eval = res.mean_final_coverage
+            # EvalCallback best_model, callbacks.py:685-693): rank 0's call
+            if self.ckpt is not None and self._from_rank0(better):
                 self.ckpt.save_best("eval_coverage", self.policy,
                                     self.opt_state, global_step)
                 self._save_runner_state()
@@ -280,12 +300,28 @@ class Runner:
 
         return metrics
 
+    def _from_rank0(self, flag: bool) -> bool:
+        """Rank 0's `flag`, on every rank."""
+        if self.mesh is None:
+            return flag
+        return bool(self.mesh.broadcast_(
+            torch.tensor([flag], device=self.device)).item())
+
+    def _eval_policy(self) -> torch.nn.Module:
+        """The policy the eval runs: the Runner's own, or under tensor
+        parallelism an unsharded copy of it (gathered on every rank)."""
+        if self.mesh is None or self.mesh.model_axis == 1:
+            return self.policy
+        copy = ActorCriticPolicy(self.cfg.model, None, self.device)
+        copy.load_state_dict(self.variables())
+        return copy
+
     # ------------------------------------------------------------------
     def _save_runner_state(self):
         """Persist the best-checkpoint trackers + rolling episode stats next
         to the checkpoints, so a resumed run cannot clobber a better
         rl_model_best_* with its first (worse) post-resume candidate."""
-        if self.ckpt is None:
+        if self.ckpt is None or self.rank != 0:
             return
         state = {
             "best_metric": self._best_metric,
@@ -319,10 +355,15 @@ class Runner:
                 f"no rl_model_*_steps checkpoints in {models_dir}")
         name = f"rl_model_{step}_steps"
         if params_only:
-            self.policy.load_state_dict(mgr.restore_policy(name, self.device))
+            mesh_lib.load_state(self.policy,
+                                mgr.restore_policy(name, self.device))
             return 0
-        state_dict, self.opt_state, _ = mgr.restore(name, self.device)
-        self.policy.load_state_dict(state_dict)
+        state_dict, opt_state, _ = mgr.restore(name, self.device)
+        mesh_lib.load_state(self.policy, state_dict)
+        params = dict(self.policy.named_parameters())
+        self.opt_state = ppo.AdamState(
+            *({k: mesh_lib.like(v, params[k]) for k, v in moment.items()}
+              for moment in (opt_state.mu, opt_state.nu)), opt_state.count)
         self.global_step = step
         self.iteration = step // (self.cfg.ppo.n_steps * self.cfg.env.num_envs)
         # best trackers and rolling stats (absent: restart them at -inf)
@@ -337,9 +378,31 @@ class Runner:
         return step
 
     def variables(self) -> dict:
-        """The policy's state_dict (parameters and BatchNorm stats)."""
-        return self.policy.state_dict()
+        """The policy's state_dict (parameters and BatchNorm stats), whole
+        tensors: gathered under tensor parallelism, where every rank must
+        call this."""
+        return {k: mesh_lib.full(v) for k, v in self.policy.state_dict().items()}
 
     def close(self):
         if self.logger is not None:
             self.logger.close()
+
+
+def _eval_metrics(res: evaluation.EvalResult) -> dict:
+    out = {
+        "eval/mean_reward": res.mean_reward,
+        "eval/mean_AUC": res.mean_auc,
+        "eval/mean_ep_length": res.mean_ep_length,
+        "eval/final_coverage": res.mean_final_coverage,
+        "eval/init_coverage": res.mean_init_coverage,
+        "eval/coverage_curve_AUC": res.mean_curve_auc,
+    }
+    if np.isfinite(res.mean_accuracy_cm):
+        out["eval/mean_accuracy"] = res.mean_accuracy_cm
+        # the accuracy decomposition (EvalResult)
+        out["eval/accuracy_scan2gt"] = res.accuracy_scan2gt
+        out["eval/accuracy_gt2scan"] = res.accuracy_gt2scan
+        out["eval/accuracy_gt2scan_seen"] = res.accuracy_gt2scan_seen
+        out["eval/gt_unseen_frac"] = res.gt_unseen_frac
+        out["eval/accuracy_floor_gt_sampling"] = res.accuracy_floor_gt_sampling
+    return out

@@ -30,12 +30,6 @@ RENDERER_MODES = ("splat", "dda", "replay", "callback")
 EXTERNAL_DEPTH_MODES = ("replay", "callback")
 
 
-def _unsupported(setting: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{setting} is not implemented in gennbv_tpu_torch yet "
-        f"(ROADMAP.md {item})")
-
-
 @dataclass
 class CameraConfig:
     height: int = spec.CAMERA_HEIGHT
@@ -102,8 +96,8 @@ class SceneConfig:
     # world box of the mapped region; x,y in [-extent/2, extent/2], z in [0, extent_z]
     extent_xy: float = 10.0
     extent_z: float = 6.0
-    # a procedural family: "procedural" (houses) | "objects" | "convex",
-    # or a dataset directory (env/scene.py; terrain is not ported yet)
+    # a procedural family: "procedural" (houses) | "objects" | "convex" |
+    # "terrain", or a dataset directory (env/scene.py)
     dataset: str = "procedural"
     # procedural generator difficulty: "standard" | "hard"
     difficulty: str = "standard"
@@ -233,10 +227,16 @@ class RunnerConfig:
     obs_dtype: str = "float32"      # rollout obs storage dtype
 
     def __post_init__(self):
-        for name in ("num_devices", "num_slices", "model_axis"):
-            if getattr(self, name) > 1:
-                raise _unsupported(f"runner.{name}={getattr(self, name)}",
-                                   "Queue 1 item 13")
+        # the JAX runner's and mesh's assertions (parallel/mesh.py checks
+        # num_devices=0, the whole process group, when it builds the mesh)
+        if self.model_axis > 1 and self.num_slices > 1:
+            raise ValueError("runner.model_axis and runner.num_slices are "
+                             "mutually exclusive")
+        for name in ("model_axis", "num_slices"):
+            if self.num_devices > 0 and self.num_devices % getattr(self, name):
+                raise ValueError(
+                    f"runner.num_devices ({self.num_devices}) must be "
+                    f"divisible by runner.{name} ({getattr(self, name)})")
 
 
 @dataclass

@@ -18,11 +18,11 @@ A scene is:
   multiple of 1024), which the splat renderer projects.
 
 The procedural families are ported: ``procedural`` (houses), ``objects``
-(the zero-shot object family) and ``convex`` (single convex primitives, the
-chamfer-floor probe).  So are dataset directories: ``<dir>/scenes.npz``
-as ``tools/convert_dataset.py`` writes it (``load_npz``), else a
-reference-layout ``<dir>/gt_grid.npy`` (``load_reference_gt``).
-``terrain`` raises (ROADMAP Queue 1 item 11, with ``env/terrain.py``).
+(the zero-shot object family), ``convex`` (single convex primitives, the
+chamfer-floor probe) and ``terrain`` (``env/terrain.py``).  So are dataset
+directories: ``<dir>/scenes.npz`` as ``tools/convert_dataset.py`` writes
+it (``load_npz``), else a reference-layout ``<dir>/gt_grid.npy``
+(``load_reference_gt``).
 """
 from __future__ import annotations
 

@@ -44,7 +44,16 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     stats move as ``(1 - momentum) * old + momentum * batch`` (momentum 0.1
     is Flax's 0.9).  ``num_batches_tracked`` stays 0, as Flax has no such
     counter.  Eval mode normalises with the running stats, as PyTorch's
-    does; the state_dict keys are PyTorch's."""
+    does; the state_dict keys are PyTorch's.
+
+    Under a mesh (``mesh``, set by ``parallel.mesh.shard_policy``) each
+    rank holds a share of the minibatch, and the statistics are those of
+    the whole minibatch, as GSPMD computes them: the per-channel sum and
+    then the sum of squared deviations are summed over the env axis with
+    the differentiable all-reduce, so the backward pass is the whole
+    batch's too.  Without one, the local path below runs."""
+
+    mesh = None
 
     def _check_input_dim(self, x: torch.Tensor) -> None:
         if x.dim() < 2:
@@ -55,6 +64,8 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if self.mesh is not None:
+            return self._forward_mesh(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x, [0, *range(2, x.dim())], correction=0)
             stats = [self.running_mean, self.running_var]
@@ -64,6 +75,21 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         # variance too (it is only its running-stat update that is unbiased)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _forward_mesh(self, x: torch.Tensor) -> torch.Tensor:
+        dims = [0, *range(2, x.dim())]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        n = x.numel() // x.shape[1] * self.mesh.env_width
+        mean = self.mesh.all_reduce_grad(x.sum(dims)) / n
+        dev = x - mean.view(shape)
+        var = self.mesh.all_reduce_grad((dev * dev).sum(dims)) / n
+        with torch.no_grad():
+            stats = [self.running_mean, self.running_var]
+            torch._foreach_mul_(stats, 1 - self.momentum)
+            torch._foreach_add_(stats, [mean.detach(), var.detach()],
+                                alpha=self.momentum)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return dev * scale.view(shape) + self.bias.view(shape)
 
 
 class HybridEncoder(nn.Module):

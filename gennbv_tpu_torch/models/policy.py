@@ -65,13 +65,16 @@ class ActorCriticPolicy(nn.Module):
 
     @torch.no_grad()
     def act(self, obs: torch.Tensor, generator: Optional[torch.Generator] = None,
-            deterministic: bool = False):
+            deterministic: bool = False, rows: Optional[slice] = None,
+            width: Optional[int] = None):
         """Rollout-time forward (call in eval mode: BN running stats, like
         SB3's collect).  Returns (actions [N, 6] int32, values [N],
-        log_probs [N])."""
+        log_probs [N]).  `rows` of `width`: the envs of `obs` are those
+        rows of a batch of `width`, whose draws are made in full
+        (``distributions.sample``)."""
         out = self(obs)
         if deterministic:
             actions = distributions.mode(out.logits)
         else:
-            actions = distributions.sample(out.logits, generator)
+            actions = distributions.sample(out.logits, generator, rows, width)
         return actions, out.value, distributions.log_prob(out.logits, actions)

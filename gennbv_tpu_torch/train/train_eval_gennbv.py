@@ -10,7 +10,8 @@ is a second env on the same device.
 On converted meshes (``gennbv_tpu_torch/tools/convert_dataset.py``):
 ``--set env.scene.dataset=<train dir> --eval_dataset <held-out dir>``.
 The eval dataset is recorded in the run's config.json (``eval_dataset``),
-where ``tools/post_run.py`` takes its held-out family from.
+where ``tools/post_run.py`` takes its held-out family from.  Under
+torchrun (see ``train_gennbv``) rank 0 runs the eval.
 """
 from __future__ import annotations
 
@@ -41,18 +42,20 @@ def main(argv=None):
         cfg = apply_overrides(cfg, ("runner.eval_freq=15",))
 
     from gennbv_tpu_torch.algo.runner import Runner
+    from gennbv_tpu_torch.parallel.mesh import torchrun_group
 
     # held-out eval scenes: one per eval env, another generator seed (or a
     # separate converted-mesh directory via --eval_dataset)
     eval_scene_cfg = dataclasses.replace(
         cfg.env.scene, num_scenes=spec.EVAL_NUM_ENVS, seed=args.eval_seed,
         **({"dataset": args.eval_dataset} if args.eval_dataset else {}))
-    eval_scenes = make_scenes(eval_scene_cfg, cfg.env.renderer.resolution,
-                              args.device)
     eval_dataset = (os.path.abspath(args.eval_dataset) if args.eval_dataset
                     else None)
-    run(Runner(cfg, eval_scenes=eval_scenes, device=args.device,
-               eval_dataset=eval_dataset), args)
+    with torchrun_group(args.device) as device:
+        eval_scenes = make_scenes(eval_scene_cfg, cfg.env.renderer.resolution,
+                                  device)
+        run(Runner(cfg, eval_scenes=eval_scenes, device=device,
+                   eval_dataset=eval_dataset), args)
 
 
 if __name__ == "__main__":

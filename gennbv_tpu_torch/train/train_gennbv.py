@@ -5,6 +5,15 @@ gennbv/train/train_gennbv.py; port of ``gennbv_tpu/train/train_gennbv.py``).
 
 Any config field can be overridden with `--set a.b.c=value`.  Runs on the
 CUDA card unless `--device cpu` is given.
+
+On several ranks (``runner.num_devices``, ``num_slices``, ``model_axis``;
+``parallel/mesh.py``), one process a rank under torchrun, e.g.
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m gennbv_tpu_torch.train.train_gennbv --set runner.num_devices=2
+
+Each rank takes cuda:LOCAL_RANK over nccl, or the CPU over gloo with
+``--device cpu``.  Rank 0 prints, logs and writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -71,7 +80,8 @@ def run(runner, args) -> None:
         print(f"warm-started params from {args.resume_params}")
     try:
         metrics = runner.train(runner.cfg.ppo.total_iters)
-        print("final:", {k: round(v, 4) for k, v in metrics.items()})
+        if runner.rank == 0:
+            print("final:", {k: round(v, 4) for k, v in metrics.items()})
     finally:
         runner.close()
 
@@ -81,8 +91,10 @@ def main(argv=None):
     cfg = config_from_args(args)
 
     from gennbv_tpu_torch.algo.runner import Runner
+    from gennbv_tpu_torch.parallel.mesh import torchrun_group
 
-    run(Runner(cfg, device=args.device), args)
+    with torchrun_group(args.device) as device:
+        run(Runner(cfg, device=device), args)
 
 
 if __name__ == "__main__":

@@ -7,6 +7,10 @@ JAX package's names: periodic ``rl_model_<steps>_steps`` saves plus
 host tensors: the policy's state_dict, the Adam state (mu and nu keyed by
 parameter name, and the count) and the global step.  It is written beside
 its name and then renamed, so a reader never sees a partial file.
+
+In a process group every rank calls ``save`` (under tensor parallelism the
+sharded tensors are gathered whole, a collective) and rank 0 writes; every
+rank loads.  A checkpoint therefore holds whole tensors whatever the mesh.
 """
 from __future__ import annotations
 
@@ -14,12 +18,14 @@ import os
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from gennbv_tpu_torch.algo.ppo import AdamState
+from gennbv_tpu_torch.parallel import mesh as mesh_lib
 
 
 def _host(tensors: dict) -> dict:
-    return {k: v.detach().cpu() for k, v in tensors.items()}
+    return {k: mesh_lib.full(v.detach()).cpu() for k, v in tensors.items()}
 
 
 class CheckpointManager:
@@ -31,13 +37,16 @@ class CheckpointManager:
 
     def save(self, name: str, policy: torch.nn.Module, opt_state: AdamState,
              step: int):
+        payload = {"policy": _host(policy.state_dict()),
+                   "opt_state": {"mu": _host(opt_state.mu),
+                                 "nu": _host(opt_state.nu),
+                                 "count": opt_state.count},
+                   "step": step}
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
         os.makedirs(self.ckpt_dir, exist_ok=True)
         path = self._path(name)
-        torch.save({"policy": _host(policy.state_dict()),
-                    "opt_state": {"mu": _host(opt_state.mu),
-                                  "nu": _host(opt_state.nu),
-                                  "count": opt_state.count},
-                    "step": step}, path + ".tmp")
+        torch.save(payload, path + ".tmp")
         os.replace(path + ".tmp", path)
 
     def save_step(self, step: int, policy, opt_state: AdamState):

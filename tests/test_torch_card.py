@@ -722,3 +722,42 @@ def test_sample_relabeled_on_card_matches_cpu(cuda):
                        GoalPointEnv(dim=2, device="cpu").compute_reward, cfg)
     for f in got._fields:
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+def test_full_width_draws_equal_multinomial_on_card(cuda):
+    """distributions.sample's argmax(p / Exp(1)) is torch.multinomial's
+    draw from the same generator; a slice of the rows drawn at full width
+    keeps the full batch's draws for its rows."""
+    from gennbv_tpu_torch import spec
+    from gennbv_tpu_torch.models import distributions
+    logits = torch.randn(256, spec.NUM_LOGITS, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(0))
+    got = distributions.sample(logits, torch.Generator("cuda").manual_seed(1))
+    gen = torch.Generator("cuda").manual_seed(1)
+    want = torch.stack([torch.multinomial(torch.softmax(c, -1), 1,
+                                          generator=gen)[:, 0]
+                        for c in torch.split(logits, spec.NVEC, -1)], -1)
+    assert torch.equal(got, want.to(torch.int32))
+    rows = slice(64, 128)
+    part = distributions.sample(logits[rows], torch.Generator(
+        "cuda").manual_seed(1), rows, 256)
+    assert torch.equal(part, got[rows])
+
+
+def test_mesh_update_on_one_card_over_nccl(cuda, tmp_path):
+    """tests/test_torch_mesh.py's one update at W = 1 over nccl (a FileStore
+    group of one, the captured CUDA graph with its collectives) against
+    the update without a mesh on the card."""
+    import os
+    import torch.distributed as dist
+    import torch_mesh_ranks as R
+    cfg = R.tiny(num_devices=1)
+    want = R.update_case("cuda", R.one_process(cfg))
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp_path, "store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+    try:
+        got = R.update_case("cuda", cfg)
+    finally:
+        dist.destroy_process_group()
+    R.held_update(got, want)

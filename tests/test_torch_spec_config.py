@@ -80,15 +80,17 @@ def test_bad_impl_name_rejected():
 
 
 # the modules of the continuous-control slices (the drone, then the legged
-# robots, terrain, the recurrent family and the torsos) and of the
-# off-policy family, each the JAX package's module of the same path
+# robots, terrain, the recurrent family and the torsos), of the
+# off-policy family and of the mesh slice, each the JAX package's module
+# of the same path
 CONTINUOUS_MODULES = (
     "utils.normalizer", "env.synthetic", "utils.env_checker", "env.wrappers",
     "utils.math", "models.gaussian", "models.actor_critic",
     "algo.ppo_continuous", "algo.on_policy_runner", "env.drone_robot",
     "registry", "train.train_rsl", "env.legged_robot", "env.terrain",
     "models.torso", "algo.ppo_recurrent", "models.off_policy_nets",
-    "algo.replay_buffer", "algo.off_policy", "algo.dqn", "algo.her")
+    "algo.replay_buffer", "algo.off_policy", "algo.dqn", "algo.her",
+    "parallel.mesh", "utils.episode_plotter")
 
 
 def test_package_imports_without_jax():
@@ -145,7 +147,8 @@ def test_continuous_modules_mirror_the_jax_package():
                                    "models.off_policy_nets.SquashedGaussianActor",
                                    "models.off_policy_nets.DiscreteQNet",
                                    "algo.replay_buffer.init",
-                                   "algo.her.init_episode_buffer"])
+                                   "algo.her.init_episode_buffer",
+                                   "graft_entry.entry"])
 def test_entry_points_build_on_the_card_by_default(entry):
     """The port's entry points run on the card unless the caller asks for
     the CPU (the CPU tests pass device="cpu")."""

@@ -1,7 +1,8 @@
 """The training slice of the port: one whole JAX iteration (collect -> GAE
 -> PPO update) replayed through the port, then the port's Runner, its
 checkpoints, logger, profiling and the train CLIs on the CPU (the
-Runner tests of tests/test_runner.py, without its multi-device ones)."""
+Runner tests of tests/test_runner.py; its multi-device ones are in
+tests/test_torch_mesh.py)."""
 import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 import json
@@ -284,14 +285,6 @@ def test_two_runs_at_one_seed_are_bit_equal(tmp_path):
     other = _runner(tmp_path, "other", _tiny(seed=4))
     assert not torch.equal(other.variables()["action_net.weight"],
                            va["action_net.weight"])
-
-
-@pytest.mark.parametrize("override", ["runner.num_devices=2",
-                                      "runner.num_slices=2",
-                                      "runner.model_axis=2"])
-def test_multi_device_settings_raise(override):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        pt_config.apply_overrides(pt_config.Config(), (override,))
 
 
 def test_single_device_settings_accepted():

@@ -54,12 +54,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    parameters and both BatchNorms' running stats moved, each kernel's
    exact launch count, and that a fresh Runner restored from the
    checkpoint holds the same parameters, optimizer state and step bit for
-   bit, and that a second Runner from the same seed on the same scenes
-   ends with the same parameters, BatchNorm stats, Adam state and logged
-   metrics (but time/*) bit for bit; prints each timed iteration's seconds
-   by phase, env-steps/s, update minibatches/s, peak memory, and the
-   update's device-busy share, top device ops and device activities per
-   minibatch over 32 minibatches;
+   bit, and that two more Runners from the same seed on the same scenes,
+   one at the recipe's runner.pipeline_depth (2) and one at depth 1, end
+   with the same parameters, BatchNorm stats, Adam state, logged metrics
+   (but time/*) and checkpoint files bit for bit; the first twin's
+   dispatches after the first run under torch.profiler, and their CUDA
+   runtime calls must hold no host wait (cudaStreamSynchronize,
+   cudaDeviceSynchronize, cudaEventSynchronize, cudaMemcpy), each
+   processed iteration exactly one event wait, its fetch; prints each
+   iteration's fetch spacing and device seconds by phase (CUDA events),
+   each depth's wall seconds, update minibatches/s and peak memory; then
+   six more iterations of the loop, timing on the host each dispatch, the
+   update's enqueue and each replay beside the CUDA-event spans, and a
+   profiled window (the second of two unfenced iterations, to its 64th
+   replay) giving the rollout's and the iteration's device-busy share;
+   then the update alone, KL-gated and not, timed to the device's end,
+   and the gated one's device-busy share, top device ops and device
+   activities per minibatch over 32 minibatches;
 8. the post-training report on phase 7's run directory:
    gennbv_tpu_torch/tools/post_run.py's main with --eval_cam 400
    --point_stride 8 --no-artifacts, at full size (held-out houses, objects
@@ -323,6 +334,11 @@ F32_OPS_PER_S = 67e12
 # each side (see _profiled)
 PROFILE_PADS, PAD_CYCLES, PROFILE_TAKES = 256, 50_000, 5
 PADS_LOST = {"leading": 0, "trailing": 0}
+# the CUDA runtime calls that make the host wait for the device (cudaMemcpy:
+# the synchronous copy; PyTorch's copies to the host run cudaMemcpyAsync
+# and cudaStreamSynchronize)
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
 
 KERNELS = {
     "gather_image": ("gennbv_tpu_torch/csrc/gather_image.cu",
@@ -1033,66 +1049,355 @@ def train_config() -> config.Config:
 
 def _profile_update(card: str, runner: Runner) -> dict:
     """The update alone over 32 minibatches of 128 rows (a 16-step rollout
-    of the 256 envs, one epoch, no KL stop; the CUDA graph's capture
-    included), timed and then under the profiler."""
-    cfg = dataclasses.replace(runner.cfg.ppo, n_steps=16, n_epochs=1,
-                              target_kl=None)
+    of the 256 envs, one epoch), each config on a Learner of its own whose
+    first call captures its step: the flagship's KL-gated step and the
+    step without a target KL, timed to the device's end, then the gated
+    one under the profiler."""
+    gated = dataclasses.replace(runner.cfg.ppo, n_steps=16, n_epochs=1)
     _, _, batch, _ = rollout.collect(
         runner.env, runner.policy, runner._final_env_state, runner._final_obs,
-        runner.generator, cfg.n_steps, cfg.gamma)
+        runner.generator, gated.n_steps, gated.gamma, runner.obs_dtype)
     adv, ret = gae.compute_gae(batch.rewards, batch.values, batch.dones.float(),
-                               batch.last_values, cfg.gamma, cfg.gae_lambda)
-    m = N_ENVS * cfg.n_steps
+                               batch.last_values, gated.gamma, gated.gae_lambda)
+    m = N_ENVS * gated.n_steps
     args = [x.reshape((m,) + x.shape[2:]) for x in (
         batch.obs, batch.actions, batch.log_probs, batch.values, adv, ret)]
+    runs = {}
+    for label, cfg in (("KL-gated", gated),
+                       ("no target KL", dataclasses.replace(gated,
+                                                            target_kl=None))):
+        learner = ppo.Learner(runner.policy, runner.opt, cfg)
 
-    def run():
-        return ppo.update(runner.policy, runner.opt, cfg, runner.opt_state,
-                          *args, runner.generator, num_envs=N_ENVS)
+        def run(cfg=cfg, learner=learner):
+            return ppo.update(runner.policy, runner.opt, cfg,
+                              runner.opt_state, *args, runner.generator,
+                              num_envs=N_ENVS, learner=learner)
 
-    run()                                           # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, upd = run()
-    secs = time.perf_counter() - t0                 # the update ends on the host
-    n_mb = upd.n_minibatches_done
-    assert n_mb == m // cfg.batch_size
-    res = profile(f"update, {n_mb:g} minibatches of {cfg.batch_size} rows", run,
-                  secs)
-    print(f"update: {n_mb / secs:.1f} minibatches/s unprofiled "
-          f"({secs * 1e3 / n_mb:.3f} ms each), {res['activities'] / n_mb:.1f} "
-          f"device activities a minibatch [{card}]")
+        run()                                       # the capture
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, upd = run()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        n_mb = m // cfg.batch_size
+        assert 1 <= float(upd.n_minibatches_done) <= n_mb
+        runs[label] = (run, min(secs), n_mb)
+        print(f"update ({label} step, {n_mb} replays of its graph): "
+              + ", ".join(f"{s * 1e3 / n_mb:.3f}" for s in secs)
+              + f" ms a minibatch to the device's end [{card}]")
+    run, secs, n_mb = runs["KL-gated"]
+    res = profile(f"update, {n_mb} minibatches of {gated.batch_size} rows",
+                  run, secs)
+    print(f"update: {res['activities'] / n_mb:.1f} device activities a "
+          f"minibatch [{card}]")
     return res
 
 
-def reproduce(card: str, cfg: config.Config, scenes, eval_scenes,
-              first: dict) -> None:
-    """A second Runner from the same seed trains the same iterations on
-    the same scenes; raises unless its parameters, BatchNorm statistics,
-    Adam state and logged metrics (but time/*) equal the first run's
-    snapshot bit for bit."""
-    log_dir = tempfile.mkdtemp(prefix="chip_smoke_repro_")
-    try:
-        twin = Runner(cfg, scenes=scenes, eval_scenes=eval_scenes,
-                      log_dir=log_dir)
+def _pipeline_window(card: str, runner: Runner, iters: int = 6,
+                     replays: int = 64) -> None:
+    """Where an iteration of the pipelined loop spends its time, on a
+    trained runner with its eval and checkpoints off.  First `iters`
+    iterations unprofiled, timing on the host each dispatch, its update's
+    enqueue (``Learner.run``) and each replay of the captured step, beside
+    the update's device span (CUDA events).  Then two more, profiled from
+    the second one's dispatch to the end of its update's `replays`-th
+    replay, without a fence between the two: the device records before the
+    first replay are the rollout's (with GAE and the snapshot), and give
+    its device-busy share in the loop."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    steps = runner.cfg.ppo.n_steps * N_ENVS
+    learner, saved = runner.learner, (runner.cfg, runner.ckpt, runner.logger)
+    runner.cfg = config.apply_overrides(runner.cfg, (
+        "runner.eval_freq=0", "runner.save_freq=0"))
+    runner.ckpt = runner.logger = None
+    graph, run = learner.graph, learner.run
+    dispatch, process = runner._dispatch, runner._process_iter
+    seen = {"dispatch": [], "run": [], "stamps": [], "metrics": []}
+    window = {"on": False, "dispatches": 0, "prof": None}
+
+    def pads():
+        for _ in range(PROFILE_PADS):
+            torch.cuda._sleep(PAD_CYCLES)
+
+    class Timed:
+        def replay(self):
+            graph.replay()
+            seen["stamps"][-1].append(time.perf_counter())
+            if window["on"] and len(seen["stamps"][-1]) == replays + 1:
+                pads()
+                torch.cuda.synchronize()
+                window["prof"].stop()
+                window["on"] = False
+
+    def timed_run(*args):
+        seen["stamps"].append([time.perf_counter()])
+        run(*args)
+        seen["run"].append(time.perf_counter() - seen["stamps"][-1][0])
+
+    def timed_dispatch(*args):
+        window["dispatches"] += 1
+        if window["prof"] is not None and window["dispatches"] == 2:
+            window["prof"].start()
+            window["on"] = True
+            pads()
         t0 = time.perf_counter()
-        twin.train(TRAIN_ITERS)
+        out = dispatch(*args)
+        seen["dispatch"].append(time.perf_counter() - t0)
+        return out
+
+    def kept_process(entry):
+        metrics = process(entry)
+        seen["metrics"].append(metrics)
+        return metrics
+
+    learner.graph, learner.run = Timed(), timed_run
+    runner._dispatch, runner._process_iter = timed_dispatch, kept_process
+    try:
+        runner.train(runner.iteration + iters, log=False)
         torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        second = snapshot(twin, read_logged(log_dir))
-        twin.close()
+        timed = {k: list(v) for k, v in seen.items()}
+        for take in range(1, PROFILE_TAKES + 1):
+            window["prof"] = torch.profiler.profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            window["dispatches"] = 0
+            runner.train(runner.iteration + 2, log=False)
+            torch.cuda.synchronize()
+            events = window["prof"].profiler.kineto_results.events()
+            launches = {e.correlation_id() for e in events
+                        if e.device_type() == DeviceType.CPU
+                        and e.name() == "cudaGraphLaunch"}
+            spans = sorted(((e.start_ns(), e.end_ns(), e.name(),
+                             e.correlation_id() in launches) for e in events
+                            if e.device_type() == DeviceType.CUDA
+                            and not e.is_user_annotation()))
+            is_pad = ["spin_kernel" in name for _, _, name, _ in spans]
+            lead = max((i + 1 for i, p in enumerate(is_pad[:len(spans) // 2])
+                        if p), default=0)
+            tail = next((i for i, p in enumerate(is_pad) if p and i >= lead),
+                        len(spans))
+            inside = spans[lead:tail]
+            first = next((i for i, s in enumerate(inside) if s[3]), None)
+            if lead and tail < len(spans) and first:
+                break
+            print(f"train: window profile {take} of {PROFILE_TAKES} lost the "
+                  f"device's records ({len(spans)} device activities, "
+                  f"{sum(is_pad)} pads, first graph kernel at {first})")
+        else:
+            raise AssertionError("train: the profiler lost the window's device "
+                                 f"records {PROFILE_TAKES} times")
     finally:
-        shutil.rmtree(log_dir, ignore_errors=True)
-    diff = first_difference(first, second)
-    if diff:
-        raise AssertionError(f"train: a second Runner from seed "
-                             f"{cfg.runner.seed} differs first in {diff}")
-    iters = ", ".join(f"{rec['time/iter_seconds']:.3f} s" for rec in
-                      second["logged"])
-    print(f"train: a second Runner from seed {cfg.runner.seed} on the same "
-          f"scenes ends {TRAIN_ITERS} iterations with the same parameters, "
-          f"BatchNorm stats, Adam state and logged metrics (but time/*), bit "
-          f"for bit, in {secs:.3f} s (iterations {iters}) [{card}]")
+        learner.graph, learner.run = graph, run
+        del runner._dispatch, runner._process_iter
+        runner.cfg, runner.ckpt, runner.logger = saved
+
+    def busy(part):
+        total, end = 0, float("-inf")
+        for s, e, _, _ in part:
+            total += max(0, e - max(s, end))
+            end = max(end, e)
+        return total / 1e9, (max(e for _, e, _, _ in part) - part[0][0]) / 1e9
+
+    rollout_busy, rollout_span = busy(inside[:first])
+    update_busy, update_span = busy(inside[first:])
+    for d, r, stamps, rec in zip(timed["dispatch"], timed["run"],
+                                 timed["stamps"], timed["metrics"]):
+        gaps = np.diff(stamps)
+        per_mb = rec["time/update"] / len(gaps)
+        ahead = next((i for i, g in enumerate(gaps) if g > per_mb / 2),
+                     len(gaps))
+        print(f"train: loop iteration {rec['global_step'] // steps}: "
+              f"fetched {rec['time/iter_seconds']:.3f} s after the last fetch; "
+              f"the host enqueued it in {d:.3f} s: the rollout, GAE and "
+              f"snapshot {d - r:.3f} s, the update's {len(gaps)} replays "
+              f"{r:.3f} s, against the device spans of the rollout "
+              f"{rec['time/rollout']:.3f} s and the update "
+              f"{rec['time/update']:.3f} s (CUDA events), "
+              f"{rec['train/n_minibatches']:g} minibatches applied; {ahead} "
+              f"replays "
+              f"enqueued before the host's first wait "
+              f"({1e3 * sum(gaps[:ahead]):.3f} ms), then one every "
+              f"{1e3 * float(np.median(gaps[ahead:])):.3f} ms (median), "
+              f"against {1e3 * per_mb:.3f} ms a minibatch on the device "
+              f"[{card}]")
+    print(f"train: the profiled window (the second of two unfenced "
+          f"iterations): the rollout, GAE and snapshot busy the device "
+          f"{rollout_busy:.3f} s of their {rollout_span:.3f} s device span "
+          f"({100 * rollout_busy / rollout_span:.1f}%, {first} device "
+          f"activities); the update's first {replays} replays "
+          f"{update_busy * 1e3:.3f} ms of {update_span * 1e3:.3f} ms "
+          f"({100 * update_busy / update_span:.1f}%) [{card}]")
+    # fetched while later iterations were in flight: neither the first
+    # (its own span) nor those drained at the end
+    steady = timed["metrics"][1:iters - runner.cfg.runner.pipeline_depth]
+    shares = [(rollout_busy + rec["time/update"] * update_busy / update_span)
+              / rec["time/iter_seconds"] for rec in steady]
+    print(f"train: the device's busy share of the steady loop iterations "
+          f"{', '.join(str(rec['global_step'] // steps) for rec in steady)} "
+          f"(the window's rollout busy seconds, plus each update's span at "
+          f"the window's busy share, over the fetch spacing): "
+          f"{', '.join(f'{100 * x:.1f}%' for x in shares)} [{card}]")
+
+
+@contextlib.contextmanager
+def _host_waits(runner: Runner):
+    """Counts the host's waits for the device in a runner's train():
+    every dispatch after the first runs under torch.profiler, which
+    records each CUDA runtime call, and the HOST_WAITS calls inside its
+    ``runner/dispatch`` range are counted; each processed iteration's
+    ``torch.cuda.Event.synchronize`` calls (its fetch) are counted.
+    Yields {"dispatch": [waits of each profiled dispatch], "calls":
+    [runtime calls of each], "fetch": [event waits of each processed
+    iteration]}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    seen = {"dispatch": [], "calls": [], "fetch": []}
+    dispatch, process = runner._dispatch, runner._process_iter
+    start = runner.iteration
+    event_sync = torch.cuda.Event.synchronize
+    syncs = [0]
+
+    def counted_sync(event):
+        syncs[0] += 1
+        return event_sync(event)
+
+    def profiled_dispatch(*args):
+        if runner.iteration == start:
+            return dispatch(*args)
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+            out = dispatch(*args)
+        events = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CPU]
+        span = next(e for e in events if e.name() == "runner/dispatch")
+        calls = sorted((e.start_ns(), e.name()) for e in events
+                       if e.name().startswith("cuda")
+                       and span.start_ns() <= e.start_ns() <= span.end_ns())
+        # the dispatch records the timer's first event before its first
+        # launch and ends with the fetch's event record: a profile that
+        # lost runtime records at an end misses one of the two
+        names = [name for _, name in calls]
+        first = next((i for i, n in enumerate(names)
+                      if n.startswith("cudaLaunch")), len(names))
+        if not (any(n.startswith("cudaEventRecord") for n in names[:first])
+                and names and names[-1].startswith("cudaEventRecord")):
+            raise AssertionError(
+                f"train: the profile of dispatch {runner.iteration + 1} lost "
+                f"runtime records at its ends ({names[:first + 1]}, "
+                f"{names[-1:]})")
+        seen["dispatch"].append(sum(name in HOST_WAITS for _, name in calls))
+        seen["calls"].append(len(calls))
+        return out
+
+    def counted_process(entry):
+        before = syncs[0]
+        metrics = process(entry)
+        seen["fetch"].append(syncs[0] - before)
+        return metrics
+
+    runner._dispatch, runner._process_iter = profiled_dispatch, counted_process
+    torch.cuda.Event.synchronize = counted_sync
+    try:
+        yield seen
+    finally:
+        torch.cuda.Event.synchronize = event_sync
+        del runner._dispatch, runner._process_iter
+
+
+def _same_checkpoints(label: str, dir_a: str, dir_b: str) -> int:
+    """Raises unless two models directories hold the same checkpoint files
+    with the same tensors, counts and steps; returns the file count."""
+    names = sorted(n for n in os.listdir(dir_a) if n.startswith("rl_model_"))
+    if names != sorted(n for n in os.listdir(dir_b)
+                       if n.startswith("rl_model_")):
+        raise AssertionError(f"{label}: checkpoint files differ")
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        return torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+    for name in names:
+        a, b = (torch.load(os.path.join(d, name), weights_only=True)
+                for d in (dir_a, dir_b))
+        if not same(a, b):
+            raise AssertionError(f"{label}: checkpoint {name} differs")
+    return len(names)
+
+
+def reproduce(card: str, cfg: config.Config, scenes, eval_scenes,
+              first: dict, first_dir: str, first_secs: float) -> None:
+    """Two more Runners from the same seed train the same iterations on
+    the same scenes: one at the same pipeline depth, with each dispatch
+    after the first profiled for the host's waits, and one at
+    runner.pipeline_depth=1.  Raises unless each one's parameters,
+    BatchNorm statistics, Adam state, logged metrics (but time/*) and
+    checkpoint files equal the first run's bit for bit, a profiled
+    dispatch made a host wait, or a processed iteration waited for the
+    device other than once (its fetch)."""
+    depth = cfg.runner.pipeline_depth
+    twins = {depth: cfg, 1: config.apply_overrides(
+        cfg, ("runner.pipeline_depth=1",))}
+    runs = {depth: (first["logged"], first_secs)}
+    for d, twin_cfg in twins.items():
+        log_dir = tempfile.mkdtemp(prefix="chip_smoke_repro_")
+        try:
+            twin = Runner(twin_cfg, scenes=scenes, eval_scenes=eval_scenes,
+                          log_dir=log_dir)
+            waits = contextlib.nullcontext()
+            if d == depth:
+                waits = _host_waits(twin)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with waits as seen:
+                twin.train(TRAIN_ITERS)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            second = snapshot(twin, read_logged(log_dir))
+            files = _same_checkpoints(f"train: depth {d}",
+                                      os.path.join(first_dir, "models"),
+                                      os.path.join(log_dir, "models"))
+            twin.close()
+        finally:
+            shutil.rmtree(log_dir, ignore_errors=True)
+        diff = first_difference(first, second)
+        if diff:
+            raise AssertionError(f"train: a Runner from seed {cfg.runner.seed}"
+                                 f" at pipeline depth {d} differs first in "
+                                 f"{diff}")
+        if d == depth:
+            if any(seen["dispatch"]) or seen["fetch"] != [1] * TRAIN_ITERS:
+                raise AssertionError(
+                    f"train: host waits in the dispatches after the first "
+                    f"{seen['dispatch']}, event waits of each processed "
+                    f"iteration {seen['fetch']} (expected 0s and 1s)")
+            print(f"train: dispatches {first['logged'][0]['step'] + 1}-"
+                  f"{TRAIN_ITERS} made {seen['dispatch']} host waits among "
+                  f"{seen['calls']} CUDA runtime calls (torch.profiler); each "
+                  f"processed iteration waited once, for its fetch "
+                  f"{seen['fetch']} [{card}]")
+        else:
+            runs[d] = (second["logged"], secs)
+        print(f"train: a Runner from seed {cfg.runner.seed} at pipeline depth "
+              f"{d} ends {TRAIN_ITERS} iterations with the same parameters, "
+              f"BatchNorm stats, Adam state, logged metrics (but time/*) and "
+              f"{files} checkpoint files, bit for bit [{card}]")
+    def line(values, fmt=".3f"):
+        return ", ".join(f"{v:{fmt}}" for v in values)
+
+    for d, (logged, secs) in sorted(runs.items()):
+        spans = [rec["time/rollout"] + rec["time/gae"] + rec["time/update"]
+                 for rec in logged]
+        rates = [rec["train/n_minibatches"] / rec["time/update"]
+                 for rec in logged]
+        print(f"train: pipeline depth {d}: {TRAIN_ITERS} iterations with the "
+              f"eval and checkpoint in {secs:.3f} s; time/iter_seconds (the "
+              f"spacing of fetches) "
+              f"{line(rec['time/iter_seconds'] for rec in logged)} s; device "
+              f"spans of rollout + gae + update (CUDA events) {line(spans)} "
+              f"s; the update {line(rates, '.1f')} minibatches/s [{card}]")
 
 
 def phase_train(card: str, scenes, eval_scenes, log_dir: str) -> dict:
@@ -1134,7 +1439,7 @@ def phase_train(card: str, scenes, eval_scenes, log_dir: str) -> dict:
             if not 1 <= rec["train/n_minibatches"] <= total // cfg.ppo.total_iters:
                 raise AssertionError(f"train: {rec['train/n_minibatches']} "
                                      "minibatches")
-        count = runner.opt_state.count
+        count = int(runner.opt_state.count)
         assert count == sum(rec["train/n_minibatches"] for rec in logged)
         lr = metrics["train/learning_rate"]
         if not (lr == runner.opt.lr(count) and
@@ -1154,11 +1459,12 @@ def phase_train(card: str, scenes, eval_scenes, log_dir: str) -> dict:
         for rec in logged:
             mb = rec["train/n_minibatches"]
             print(f"train: iteration {rec['step']}"
-                  f"{' (warm-up)' if rec['step'] == 1 else ''}: "
-                  f"{rec['time/iter_seconds']:.3f} s = rollout "
-                  f"{rec['time/rollout']:.3f} + gae {rec['time/gae']:.4f} + "
-                  f"update {rec['time/update']:.3f} s (+ fetch); "
-                  f"{rec['time/fps']:.1f} env-steps/s; update {mb:g} "
+                  f"{' (warm-up)' if rec['step'] == 1 else ''}: fetched "
+                  f"{rec['time/iter_seconds']:.3f} s after the last fetch "
+                  f"({rec['time/fps']:.1f} env-steps/s by that spacing); on "
+                  f"the device rollout {rec['time/rollout']:.3f} + gae "
+                  f"{rec['time/gae']:.4f} + update {rec['time/update']:.3f} s "
+                  f"(CUDA events); update {mb:g} "
                   f"minibatches, {mb / rec['time/update']:.1f}/s; approx_kl "
                   f"{rec['train/approx_kl']:.5f}, episode reward "
                   f"{rec['rollout/episode_reward']:.3f} [{card}]")
@@ -1186,8 +1492,10 @@ def phase_train(card: str, scenes, eval_scenes, log_dir: str) -> dict:
         print(f"train: a fresh Runner restored from rl_model_{step}_steps holds "
               "the same parameters, BatchNorm stats, Adam state and step")
         del fresh
-        reproduce(card, cfg, scenes, eval_scenes, snapshot(runner, logged))
+        reproduce(card, cfg, scenes, eval_scenes, snapshot(runner, logged),
+                  log_dir, secs)
 
+        _pipeline_window(card, runner)
         _profile_update(card, runner)
     finally:
         runner.close()

@@ -8,6 +8,8 @@ is already folded into the rewards upstream (rollout.py), matching
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -18,11 +20,13 @@ def compute_gae(
     last_values: torch.Tensor,  # [N] V(obs_T)
     gamma: float,
     gae_lambda: float,
+    out: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (advantages [T, N], returns [T, N] = adv + values), by a
-    reverse loop over T on the inputs' device."""
+    reverse loop over T on the inputs' device; written into `out` (two
+    [T, N] tensors, a previous call's results) where given."""
     non_terminal = 1.0 - dones.float()
-    advantages = torch.empty_like(values)
+    advantages = torch.empty_like(values) if out is None else out[0]
     gae = torch.zeros_like(last_values)
     next_value = last_values
     for t in range(rewards.shape[0] - 1, -1, -1):
@@ -31,4 +35,5 @@ def compute_gae(
         gae = delta + gamma * gae_lambda * nt * gae
         advantages[t] = gae
         next_value = values[t]
-    return advantages, advantages + values
+    return advantages, torch.add(advantages, values,
+                                 out=None if out is None else out[1])

@@ -25,7 +25,7 @@ def snapshot(runner, logged: list) -> dict:
     return {"variables": {k: v.clone() for k, v in runner.variables().items()},
             "mu": {k: v.clone() for k, v in state.mu.items()},
             "nu": {k: v.clone() for k, v in state.nu.items()},
-            "count": state.count, "logged": logged}
+            "count": int(state.count), "logged": logged}
 
 
 def _differing(a: dict, b: dict) -> list:

@@ -24,6 +24,21 @@ class RolloutBatch(NamedTuple):
     last_values: torch.Tensor  # [N]
 
 
+class RolloutBuffers(NamedTuple):
+    """Storage a caller keeps from one rollout to the next
+    (``collect(out=...)``): the fields the PPO update reads, which a
+    captured update (``ppo.Learner``) finds at the same addresses every
+    iteration."""
+    obs: torch.Tensor        # [T, N, D]
+    actions: torch.Tensor    # [T, N, 6]
+    values: torch.Tensor     # [T, N]
+    log_probs: torch.Tensor  # [T, N]
+
+    @classmethod
+    def of(cls, batch: "RolloutBatch") -> "RolloutBuffers":
+        return cls(batch.obs, batch.actions, batch.values, batch.log_probs)
+
+
 class RolloutStats(NamedTuple):
     """Per-step env metrics for logging (reference extras["episode"],
     env_train_base.py:629-639)."""
@@ -41,52 +56,60 @@ class RolloutStats(NamedTuple):
 def collect(env, policy, env_state, obs: torch.Tensor,
             generator: torch.Generator, n_steps: int, gamma: float,
             obs_dtype: torch.dtype = torch.float32,
-            rows: Optional[slice] = None, width: Optional[int] = None):
+            rows: Optional[slice] = None, width: Optional[int] = None,
+            out: Optional[RolloutBuffers] = None):
     """Step `env` n_steps times with actions from ``policy.act(obs,
     generator)``; the policy runs in eval mode (BN running stats) and is
     put back in its previous mode afterwards.  Observations are stored in
     `obs_dtype` (float32, or bfloat16 to halve the rollout's largest
     buffer; ``runner.obs_dtype``).  A rank holding envs `rows` of `width`
     passes both: the actions are drawn at the full width
-    (``distributions.sample``).  Returns (env_state', obs', RolloutBatch,
-    RolloutStats)."""
+    (``distributions.sample``).  With `out` (a previous rollout's
+    ``RolloutBuffers.of``) the observations, actions, values and
+    log-probs are written into it, and the batch holds those tensors.
+    Returns (env_state', obs', RolloutBatch, RolloutStats)."""
     # a slice of the envs (a rank's) passes its place to act
     place = {} if rows is None else {"rows": rows, "width": width}
     was_training = policy.training
     policy.eval()
-    obs_seq = torch.empty((n_steps, *obs.shape), dtype=obs_dtype,
-                          device=obs.device)
+    dest = out if out is not None else RolloutBuffers(torch.empty(
+        (n_steps, *obs.shape), dtype=obs_dtype, device=obs.device),
+        None, None, None)
+    obs_seq = dest.obs
     steps = []
     try:
         for t in range(n_steps):
             obs_seq[t] = obs
             actions, values, logp = policy.act(obs, generator, **place)
-            env_state, out = env.step(env_state, actions)
-            steps.append((actions, values, logp, out._replace(obs=None)))
-            obs = out.obs
+            env_state, stepped = env.step(env_state, actions)
+            steps.append((actions, values, logp, stepped._replace(obs=None)))
+            obs = stepped.obs
         # final value for GAE + the last step's timeout bootstrap
         last_values = policy(obs).value
     finally:
         policy.train(was_training)
 
     actions, values, logps, outs = zip(*steps)
-    actions, values, logps = map(torch.stack, (actions, values, logps))
+    actions = torch.stack(actions, out=dest.actions)
+    values = torch.stack(values, out=dest.values)
+    logps = torch.stack(logps, out=dest.log_probs)
     # [T, N] stacks of the StepOutput fields
-    out = {f: torch.stack([o[i] for o in outs])
-           for i, f in enumerate(outs[0]._fields) if f != "obs"}
+    fields = {f: torch.stack([o[i] for o in outs])
+              for i, f in enumerate(outs[0]._fields) if f != "obs"}
     next_values = torch.cat([values[1:], last_values[None]], dim=0)
-    rewards = out["reward"] + gamma * next_values * out["time_out"].float()
+    rewards = (fields["reward"]
+               + gamma * next_values * fields["time_out"].float())
     batch = RolloutBatch(obs=obs_seq, actions=actions, rewards=rewards,
-                         dones=out["done"], values=values, log_probs=logps,
+                         dones=fields["done"], values=values, log_probs=logps,
                          last_values=last_values)
     stats = RolloutStats(
-        coverage=out["coverage"],
-        collision=out["collision"].float(),
-        ep_reward=out["ep_reward"],
-        ep_length=out["ep_length"],
-        ep_rew_coverage=out["ep_rew_coverage"],
-        ep_rew_short_path=out["ep_rew_short_path"],
-        ep_rew_termination=out["ep_rew_termination"],
-        num_dones=out["done"].float(),
+        coverage=fields["coverage"],
+        collision=fields["collision"].float(),
+        ep_reward=fields["ep_reward"],
+        ep_length=fields["ep_length"],
+        ep_rew_coverage=fields["ep_rew_coverage"],
+        ep_rew_short_path=fields["ep_rew_short_path"],
+        ep_rew_termination=fields["ep_rew_termination"],
+        num_dones=fields["done"].float(),
     )
     return env_state, obs, batch, stats

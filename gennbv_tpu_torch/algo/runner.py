@@ -2,16 +2,24 @@
 replacing the reference's SB3 learn() / rsl_rl OnPolicyRunner pair.
 
 Each iteration collects a rollout (128 env steps), computes GAE and runs
-the 5-epoch minibatched PPO update, all on the runner's device; then the
-rollout's metrics come to the host in one fetch, and the host logs,
-evaluates and checkpoints.  The loop is synchronous: the JAX runner
-overlaps iteration k+1 with iteration k's host work
-(``runner.pipeline_depth``), but the port's update already waits on the
-host for each minibatch's KL, so there is no queue to fill.  Eval and
-checkpoints see iteration k's parameters, as they do there.  Every random
-draw (initial weights, staggered episode lengths, actions, minibatch
-permutations) comes from one ``torch.Generator`` on the device, seeded
-with ``runner.seed``.
+the 5-epoch minibatched PPO update, all on the runner's device, and is
+enqueued without a host wait: the update gates its minibatches on the
+device (``ppo.Learner``), the rollout lands in buffers the Runner keeps,
+the phases are timed by CUDA events.  Its 17 metrics (``_METRIC_KEYS``)
+leave in one tensor, copied to pinned host memory behind an event.  The
+loop is pipelined as the JAX runner's (``gennbv_tpu/algo/runner.py``,
+``runner.pipeline_depth``): up to `depth` dispatched iterations wait in
+``pending``, and iteration k's metrics are fetched, and its host work
+done (logging, eval, checkpoints), only once iteration k + depth has been
+dispatched.  The policy is updated in place, so each iteration's
+parameters, BatchNorm stats, Adam moments and count are copied at its end
+into a ring of depth + 1 device snapshots: iteration k's eval (on an eval
+copy of the policy) and checkpoints read its own snapshot.
+``time/iter_seconds`` is the spacing of fetch completions (the first
+processed iteration: its own span).  Every random draw (initial weights,
+staggered episode lengths, actions, minibatch permutations) comes from
+one ``torch.Generator`` on the device, seeded with ``runner.seed``, and
+only the dispatch draws from it, so every depth gives the same bits.
 
 Inside a ``torch.distributed`` process group the Runner is one rank of
 the JAX runner's mesh (``parallel/mesh.py``; ``runner.num_devices``,
@@ -30,7 +38,7 @@ import json
 import os
 import time
 from collections import deque
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -47,8 +55,8 @@ from gennbv_tpu_torch.utils import profiling
 from gennbv_tpu_torch.utils.checkpoint import CheckpointManager
 from gennbv_tpu_torch.utils.logger import Logger
 
-# fixed order of the per-iteration scalar metrics (the JAX runner's): the
-# first nine come from the rollout in one device tensor, fetched once
+# fixed order of the per-iteration scalar metrics (the JAX runner's),
+# packed into one device tensor by train_iteration and fetched once
 _METRIC_KEYS = (
     "rollout/rew_surface_coverage",
     "rollout/rew_short_path",
@@ -112,6 +120,16 @@ class Runner:
         mesh_lib.shard_policy(self.policy, self.mesh)
         self.opt = ppo.make_optimizer(cfg.ppo, cfg.env.num_envs)
         self.opt_state = self.opt.init(self.policy)
+        self.learner = ppo.Learner(self.policy, self.opt, cfg.ppo, self.mesh)
+        # the rollout and its advantages and returns, kept in place for
+        # the learner's captured step (made by the first iteration)
+        self._rollout: Optional[rollout.RolloutBuffers] = None
+        self._gae: Optional[tuple] = None
+        # the pipelined loop's ring: per slot an iteration's state
+        # snapshot, its pinned metrics and the event after their copy
+        self._ring: list = []
+        self._eval_copy: Optional[ActorCriticPolicy] = None
+        self._last_fetch: Optional[float] = None
 
         self.log_dir = log_dir or os.path.join(
             cfg.runner.log_dir,
@@ -121,7 +139,7 @@ class Runner:
         self.ckpt: Optional[CheckpointManager] = None
         self.obs_dtype = (torch.bfloat16 if cfg.runner.obs_dtype == "bfloat16"
                           else torch.float32)
-        self.timer = profiling.PhaseTimer()
+        self.timer = profiling.PhaseTimer(events=True)
 
         # rolling 100-episode stats (env_train_base.py:629-639)
         self._rew_buffer: deque = deque(maxlen=100)
@@ -133,21 +151,25 @@ class Runner:
 
     # ------------------------------------------------------------------
     def train_iteration(self, env_state, obs):
-        """Collect -> GAE -> flatten -> update.  Returns (env_state', obs',
-        the nine rollout metrics as one device tensor, the update's eight
-        metrics as floats), in ``_METRIC_KEYS`` order; the timer holds the
-        seconds of each phase, each fenced on the device."""
+        """Collect -> GAE -> flatten -> update, enqueued on the device
+        without a host wait (the first call also captures the update's
+        step).  Returns (env_state', obs', the metrics of ``_METRIC_KEYS``
+        as one float32 device tensor); the timer holds the phases' CUDA
+        events (on the CPU their seconds)."""
         cfg = self.cfg.ppo
         timer, dev = self.timer, self.device
         timer.reset()
         with timer.phase("rollout", dev):
             env_state, obs, batch, stats = rollout.collect(
                 self.env, self.policy, env_state, obs, self.generator,
-                cfg.n_steps, cfg.gamma, self.obs_dtype, **self._place())
+                cfg.n_steps, cfg.gamma, self.obs_dtype, **self._place(),
+                out=self._rollout)
         with timer.phase("gae", dev):
             adv, ret = gae.compute_gae(
                 batch.rewards, batch.values, batch.dones.float(),
-                batch.last_values, cfg.gamma, cfg.gae_lambda)
+                batch.last_values, cfg.gamma, cfg.gae_lambda, out=self._gae)
+        self._rollout = rollout.RolloutBuffers.of(batch)
+        self._gae = (adv, ret)
         t, n = batch.rewards.shape
 
         def flat(x):
@@ -158,7 +180,8 @@ class Runner:
                 self.policy, self.opt, cfg, self.opt_state,
                 flat(batch.obs), flat(batch.actions), flat(batch.log_probs),
                 flat(batch.values), flat(adv), flat(ret), self.generator,
-                num_envs=self.cfg.env.num_envs, mesh=self.mesh)
+                num_envs=self.cfg.env.num_envs, mesh=self.mesh,
+                learner=self.learner)
 
         # rollout metrics (reference extras["episode"] keys): sums over the
         # env axis, then divided
@@ -171,13 +194,14 @@ class Runner:
         if self.mesh is not None:
             self.mesh.all_reduce_(sums)
         n_done = torch.clamp(sums[7], min=1.0)
-        packed = torch.cat([sums[:3] / n_done / spec.EPISODE_LENGTH_S,
-                            sums[3:7] / n_done, sums[7:8],
-                            sums[8:] / (t * self.cfg.env.num_envs)])
         # SB3 logs train/learning_rate each update: the schedule at the
         # count of applied updates
-        train = [*upd, self.opt.lr(self.opt_state.count)]
-        return env_state, obs, packed, train
+        lr = self.learner.tables.at(self.opt_state.count)[0]
+        packed = torch.cat([sums[:3] / n_done / spec.EPISODE_LENGTH_S,
+                            sums[3:7] / n_done, sums[7:8],
+                            sums[8:] / (t * self.cfg.env.num_envs),
+                            torch.stack(list(upd)), lr.reshape(1)])
+        return env_state, obs, packed
 
     # ------------------------------------------------------------------
     def _place(self) -> dict:
@@ -223,34 +247,102 @@ class Runner:
 
         env_state, obs = self.setup()
         steps_per_iter = cfg.ppo.n_steps * cfg.env.num_envs
+        depth = max(1, cfg.runner.pipeline_depth)
         last_metrics = {}
+        # dispatched iterations whose metrics are not fetched yet
+        pending: deque = deque()
+        self._last_fetch = None
         for it in range(max(num_iterations - self.iteration, 0)):
             t0 = time.perf_counter()
-            # the 2nd iteration (past the first-call costs) when requested
+            # the 2nd iteration (past the first-call costs) when requested,
+            # fetched inside the trace so its device work lands there
+            profiling_this = (bool(cfg.runner.profile_dir) and it == 1
+                              and self.rank == 0)
             with profiling.trace(cfg.runner.profile_dir
-                                 if it == 1 and self.rank == 0 else None):
-                env_state, obs, packed, train = self.train_iteration(
-                    env_state, obs)
+                                 if profiling_this else None):
+                env_state, obs, slot = self._dispatch(
+                    self.iteration % (depth + 1), env_state, obs)
+                if profiling_this and slot.done is not None:
+                    slot.done.synchronize()
             self.global_step += steps_per_iter
             self.iteration += 1
-            last_metrics = self._process_iter(packed, train, t0)
+            pending.append(_Pending(slot, self.timer.take(), self.iteration,
+                                    self.global_step, t0))
+            if len(pending) > depth:
+                last_metrics = self._process_iter(pending.popleft())
+        while pending:
+            last_metrics = self._process_iter(pending.popleft())
 
         self._final_env_state = env_state
         self._final_obs = obs
         return last_metrics
 
-    def _process_iter(self, packed, train, t0):
+    def _dispatch(self, i: int, env_state, obs):
+        """``train_iteration``, then ``_keep`` into ring slot `i`: all an
+        iteration enqueues, marked ``runner/dispatch`` in a trace.
+        Returns (env_state', obs', the slot)."""
+        with torch.profiler.record_function("runner/dispatch"):
+            env_state, obs, packed = self.train_iteration(env_state, obs)
+            return env_state, obs, self._keep(i, packed)
+
+    def _keep(self, i: int, packed: torch.Tensor) -> "_Slot":
+        """Copies the iteration just dispatched into slot `i` of the ring
+        of depth + 1 (made at the first call): its parameters and
+        BatchNorm stats, Adam moments and count on the device, and its
+        packed metrics to pinned host memory (on the CPU: a copy), with
+        an event after the copy.  Slot i is free: the iteration that held
+        it was processed before this one was dispatched."""
+        state = self.opt_state
+        tensors = [*self.policy.state_dict().values(), *state.mu.values(),
+                   *state.nu.values(), state.count]
+        on_card = packed.is_cuda
+        while len(self._ring) <= i:
+            self._ring.append(_Slot(
+                [t.detach().clone() for t in tensors],
+                torch.empty(packed.shape, dtype=packed.dtype,
+                            pin_memory=on_card),
+                torch.cuda.Event() if on_card else None))
+        slot = self._ring[i]
+        torch._foreach_copy_(mesh_lib.local(slot.tensors),
+                             mesh_lib.local(tensors))
+        slot.metrics.copy_(packed, non_blocking=on_card)
+        if on_card:
+            slot.done.record()
+        return slot
+
+    def _snapshot(self, slot: "_Slot") -> tuple[dict, ppo.AdamState]:
+        """(state_dict, AdamState) of the iteration held in `slot`."""
+        keys = list(self.policy.state_dict())
+        names = list(self.opt_state.mu)
+        t = iter(slot.tensors)
+        variables = {k: next(t) for k in keys}
+        mu = {k: next(t) for k in names}
+        nu = {k: next(t) for k in names}
+        return variables, ppo.AdamState(mu, nu, next(t))
+
+    def _process_iter(self, entry: "_Pending"):
         """Host-side post-processing of one finished iteration: the single
-        packed metric fetch, rolling stats, periodic eval, logging and
-        checkpointing."""
+        packed metric fetch (the one wait for the device), rolling stats,
+        periodic eval, logging and checkpointing, on its snapshot.  Runs
+        while the next dispatched iterations execute on the device."""
         cfg = self.cfg
-        iteration, global_step = self.iteration, self.global_step
-        metrics = dict(zip(_METRIC_KEYS, packed.tolist() + train))
-        dt_iter = time.perf_counter() - t0
+        iteration, global_step = entry.iteration, entry.global_step
+        slot = entry.slot
+        if slot.done is not None:
+            with torch.profiler.record_function("runner/fetch"):
+                slot.done.synchronize()
+        metrics = dict(zip(_METRIC_KEYS, slot.metrics.tolist()))
+        # the spacing of fetch completions (the t0 span would count the
+        # whole queue); the first processed iteration takes its own span
+        now = time.perf_counter()
+        dt_iter = now - (self._last_fetch if self._last_fetch is not None
+                         else entry.t0)
+        self._last_fetch = now
         metrics["time/fps"] = cfg.ppo.n_steps * cfg.env.num_envs / dt_iter
         metrics["time/iter_seconds"] = dt_iter
-        metrics.update(self.timer.metrics())
+        metrics.update(entry.phases.metrics())
         metrics["global_step"] = global_step
+        variables, opt_state = self._snapshot(slot)
 
         # rolling episode stats for best-ckpt selection
         if metrics["rollout/num_episodes"] > 0:
@@ -263,7 +355,7 @@ class Runner:
         if self.evaluates and cfg.runner.eval_freq > 0 and (
             iteration % cfg.runner.eval_freq == 0
         ):
-            policy = self._eval_policy()
+            policy = self._eval_policy(variables)
             better = False
             if self.eval_env is not None:
                 t_eval = time.perf_counter()
@@ -278,9 +370,9 @@ class Runner:
             # best-by-held-out-eval checkpoint (the reference's
             # EvalCallback best_model, callbacks.py:685-693): rank 0's call
             if self.ckpt is not None and self._from_rank0(better):
-                self.ckpt.save_best("eval_coverage", self.policy,
-                                    self.opt_state, global_step)
-                self._save_runner_state()
+                self.ckpt.save_best("eval_coverage", variables, opt_state,
+                                    global_step)
+                self._save_runner_state(global_step)
 
         if self.logger is not None:
             self.logger.log(metrics, iteration)
@@ -289,14 +381,14 @@ class Runner:
         if self.ckpt is not None and cfg.runner.save_freq > 0 and (
             iteration % cfg.runner.save_freq == 0
         ):
-            self.ckpt.save_step(global_step, self.policy, self.opt_state)
-            self._save_runner_state()
+            self.ckpt.save_step(global_step, variables, opt_state)
+            self._save_runner_state(global_step)
         roll = metrics.get("rollout/episode_reward_rolling", -float("inf"))
         if self.ckpt is not None and roll > self._best_metric:
             self._best_metric = roll
-            self.ckpt.save_best(cfg.runner.best_metric, self.policy,
-                                self.opt_state, global_step)
-            self._save_runner_state()
+            self.ckpt.save_best(cfg.runner.best_metric, variables, opt_state,
+                                global_step)
+            self._save_runner_state(global_step)
 
         return metrics
 
@@ -307,20 +399,24 @@ class Runner:
         return bool(self.mesh.broadcast_(
             torch.tensor([flag], device=self.device)).item())
 
-    def _eval_policy(self) -> torch.nn.Module:
-        """The policy the eval runs: the Runner's own, or under tensor
-        parallelism an unsharded copy of it (gathered on every rank)."""
-        if self.mesh is None or self.mesh.model_axis == 1:
-            return self.policy
-        copy = ActorCriticPolicy(self.cfg.model, None, self.device)
-        copy.load_state_dict(self.variables())
-        return copy
+    def _eval_policy(self, variables: dict) -> torch.nn.Module:
+        """The policy the eval runs: an unsharded copy of the Runner's
+        (made once) holding `variables`, a snapshot's state_dict (gathered
+        under tensor parallelism, where every rank must call this)."""
+        if self._eval_copy is None:
+            self._eval_copy = ActorCriticPolicy(self.cfg.model, None,
+                                                self.device)
+        self._eval_copy.load_state_dict(
+            {k: mesh_lib.full(v) for k, v in variables.items()})
+        return self._eval_copy
 
     # ------------------------------------------------------------------
-    def _save_runner_state(self):
+    def _save_runner_state(self, global_step: Optional[int] = None):
         """Persist the best-checkpoint trackers + rolling episode stats next
         to the checkpoints, so a resumed run cannot clobber a better
-        rl_model_best_* with its first (worse) post-resume candidate."""
+        rl_model_best_* with its first (worse) post-resume candidate;
+        `global_step` is the processed iteration's (default: the last
+        dispatched)."""
         if self.ckpt is None or self.rank != 0:
             return
         state = {
@@ -328,7 +424,8 @@ class Runner:
             "best_eval": self._best_eval,
             "rew_buffer": list(self._rew_buffer),
             "len_buffer": list(self._len_buffer),
-            "global_step": self.global_step,
+            "global_step": (self.global_step if global_step is None
+                            else global_step),
         }
         os.makedirs(self.ckpt.ckpt_dir, exist_ok=True)
         path = os.path.join(self.ckpt.ckpt_dir, "runner_state.json")
@@ -360,10 +457,15 @@ class Runner:
             return 0
         state_dict, opt_state, _ = mgr.restore(name, self.device)
         mesh_lib.load_state(self.policy, state_dict)
+        # into the moments in place: the learner's captured step reads them
         params = dict(self.policy.named_parameters())
-        self.opt_state = ppo.AdamState(
-            *({k: mesh_lib.like(v, params[k]) for k, v in moment.items()}
-              for moment in (opt_state.mu, opt_state.nu)), opt_state.count)
+        for mine, saved in ((self.opt_state.mu, opt_state.mu),
+                            (self.opt_state.nu, opt_state.nu)):
+            for k, v in saved.items():
+                mesh_lib.local([mine[k]])[0].copy_(
+                    mesh_lib.local([mesh_lib.like(v, params[k])])[0])
+        self.opt_state = ppo.AdamState(self.opt_state.mu, self.opt_state.nu,
+                                       opt_state.count)
         self.global_step = step
         self.iteration = step // (self.cfg.ppo.n_steps * self.cfg.env.num_envs)
         # best trackers and rolling stats (absent: restart them at -inf)
@@ -386,6 +488,25 @@ class Runner:
     def close(self):
         if self.logger is not None:
             self.logger.close()
+
+
+class _Slot(NamedTuple):
+    """A ring slot of the pipelined loop: an iteration's state tensors
+    (state_dict values, Adam mu, nu, count), its metrics on the host and
+    the event after their copy (None on the CPU)."""
+    tensors: list
+    metrics: torch.Tensor
+    done: Optional[torch.cuda.Event]
+
+
+class _Pending(NamedTuple):
+    """A dispatched iteration awaiting its fetch: its slot, its phases'
+    timer, and its iteration, global step and dispatch start."""
+    slot: _Slot
+    phases: profiling.PhaseTimer
+    iteration: int
+    global_step: int
+    t0: float
 
 
 def _eval_metrics(res: evaluation.EvalResult) -> dict:

@@ -198,6 +198,10 @@ class PPOConfig:
     # entropy floor (None = off, reference parity)
     ent_floor: Optional[float] = None
     ent_floor_coef: float = 0.1
+    # how the KL early stop keeps or discards a minibatch's update:
+    # "select" or "cond" in the JAX learner, the same bits.  The port's
+    # update is one gated step that computes and selects in both (a CUDA
+    # graph cannot branch; algo/ppo.py)
     apply_mode: str = "select"
     # logical env groups for minibatch sampling (algo/ppo.py _minibatch_shards)
     minibatch_shards: int = 8
@@ -222,7 +226,11 @@ class RunnerConfig:
     num_slices: int = 1
     model_axis: int = 1
     profile_dir: str = ""
-    # accepted; the port's loop is synchronous (algo/runner.py)
+    # training-loop pipelining: how many dispatched iterations may be in
+    # flight before their single packed metric fetch is forced; logging,
+    # eval and checkpoints lag by `pipeline_depth` iterations and read
+    # each iteration's own snapshot (algo/runner.py).  Every depth gives
+    # the same bits
     pipeline_depth: int = 2
     obs_dtype: str = "float32"      # rollout obs storage dtype
 

@@ -305,7 +305,7 @@ class ReconEnv:
         # rewards (scale * dt semantics, config.RewardConfig)
         rc = cfg.reward
         d_cov = ratio - state.coverage
-        cov_scale = torch.tensor(rc.surface_coverage * rc.dt, device=self.device)
+        cov_scale = fp32.const(rc.surface_coverage * rc.dt, self.device)
         extra = torch.clamp(episode_len - spec.SHORT_PATH_FREE_STEPS, 0,
                             spec.SHORT_PATH_MAX_EXTRA).float()
         r_sp = -extra * (rc.short_path * rc.dt)

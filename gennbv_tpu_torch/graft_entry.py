@@ -81,8 +81,7 @@ def dryrun_multichip(n_devices: int, device: str | None = None) -> list:
     (rank 0's; every rank holds the same summed values).  `device`:
     "cuda" (the default) or "cpu"."""
     device = torch.device(device or "cuda")
-    backend = ("nccl" if device.type == "cuda"
-               and torch.cuda.device_count() >= n_devices else "gloo")
+    backend = mesh_lib.backend_for(device, n_devices)
     runs = [("", 1)]
     if n_devices % 2 == 0 and n_devices >= 4:
         runs.append((f" TP (env={n_devices // 2} x model=2)", 2))

@@ -59,8 +59,10 @@ def pose_to_c2w(pose: torch.Tensor, cam_z_offset: float = 0.1
     bz = torch.stack([cy * sp, sy * sp, cp], dim=-1)          # body +z
     # OpenCV cam axes: x_cam=-by, y_cam=-bz, z_cam=bx
     r = torch.stack([-by, -bz, bx], dim=-1)                   # columns
-    offset = torch.tensor([0.0, 0.0, cam_z_offset], dtype=pose.dtype,
-                          device=pose.device)
+    # [0, 0, z], filled on the device: a Python value assigned into a
+    # slice is copied from the host, which waits for the device
+    offset = torch.zeros(3, dtype=pose.dtype, device=pose.device)
+    offset[2:].fill_(cam_z_offset)
     t = pose[..., 0:3] + offset
     return r, t
 

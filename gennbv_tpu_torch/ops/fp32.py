@@ -52,6 +52,13 @@ def deterministic_fp32() -> None:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE_CONFIG)
 
 
+def const(c: float, device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The scalar c as a 0-d tensor on `device`, rounded to `dtype`.  A
+    fill kernel writes it: ``torch.tensor(c, device=...)`` copies it from
+    the host, which on a card waits for the device to drain."""
+    return torch.full((), c, dtype=dtype, device=device)
+
+
 def f32(x: float) -> float:
     """x rounded to float32, as a Python float (exact in float32): what a
     Python constant becomes in JAX's float32 arithmetic (a weak type)."""
@@ -110,7 +117,7 @@ def rotate_fma(d: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x / c`` for a constant c, as XLA compiles it: a product with the
     float32 reciprocal of c."""
-    return x * torch.tensor(c, dtype=torch.float32, device=x.device).reciprocal()
+    return x * const(c, x.device).reciprocal()
 
 
 def mean3(x: torch.Tensor) -> torch.Tensor:
@@ -124,7 +131,7 @@ def mean3_of_scaled(x: torch.Tensor, c: float) -> torch.Tensor:
     """``mean(x / c)`` over a last axis of 3 as XLA compiles it: the
     scaling by the reciprocal of c is fused into the reduction, each term
     added to the running sum by a fused multiply-add."""
-    r = torch.tensor(c, dtype=torch.float32, device=x.device).reciprocal()
+    r = const(c, x.device).reciprocal()
     acc = x[..., 0] * r
     acc = fma(x[..., 1], r, acc)
     acc = fma(x[..., 2], r, acc)

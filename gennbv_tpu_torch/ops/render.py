@@ -128,8 +128,8 @@ def check_collision_batch(occ_all, box_lo, box_hi, scene_id, pos,
     n = pos.shape[0]
     lo = box_lo[scene_id]                                    # [N, 3]
     vsize = fp32.div_const(box_hi[scene_id] - lo, r)         # [N, 3]
-    offs = torch.tensor([-radius, 0.0, radius], dtype=torch.float32,
-                        device=pos.device)
+    # [-radius, 0, radius], made on the device (no copy from the host)
+    offs = torch.arange(-1.0, 2.0, device=pos.device) * radius
     cube = torch.cartesian_prod(offs, offs, offs)            # [27, 3]
     probes = pos[:, None, :] + cube[None, :, :]              # [N, 27, 3]
     idx = torch.floor((probes - lo[:, None, :]) / vsize[:, None, :])

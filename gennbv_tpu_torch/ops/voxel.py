@@ -25,8 +25,8 @@ def points_to_voxel_idx(pts, valid, range_gt, voxel_size):
 
     idx = floor((p - (xyz_min - 0.5*v)) / v); in bounds iff
     xyz_min - 0.5*v < p < xyz_max + 0.5*v per axis (utils.py:242-258)."""
-    xyz_max = range_gt[..., None, [0, 2, 4]]
-    xyz_min = range_gt[..., None, [1, 3, 5]]
+    xyz_max = range_gt[..., None, 0::2]
+    xyz_min = range_gt[..., None, 1::2]
     v = voxel_size[..., None, :]
     lo = xyz_min - 0.5 * v
     hi = xyz_max + 0.5 * v

@@ -299,16 +299,25 @@ def load_state(module: nn.Module, state: dict) -> None:
         local([t])[0].copy_(local([src])[0])
 
 
-def launch(fn: Callable, world_size: int, *args, device: str = "cpu",
-           backend: str = "gloo") -> list:
+def backend_for(device: torch.device | str, world_size: int) -> str:
+    """nccl where `device` is a card and there is a card a rank, else
+    gloo."""
+    return ("nccl" if torch.device(device).type == "cuda"
+            and torch.cuda.device_count() >= world_size else "gloo")
+
+
+def launch(fn: Callable, world_size: int, *args, device: str = "cuda",
+           backend: Optional[str] = None) -> list:
     """Runs ``fn(device, *args)`` on `world_size` new processes, the ranks
     of a process group over a ``FileStore`` in a temporary directory (no
     network); returns their return values in rank order.  `fn` must be
     importable by name; its values are pickled.  A rank on the CPU keeps
     to one torch thread, as the ranks of one host are meant for small
     shapes.  With nccl each rank takes its own card, cuda:rank; gloo ranks
-    share `device`.  A rank's failure raises here with its traceback."""
+    share `device`; `backend` defaults to ``backend_for``'s.  A rank's
+    failure raises here with its traceback."""
     device = torch.device(device)
+    backend = backend or backend_for(device, world_size)
     if backend == "nccl" and (device.type != "cuda" or
                               world_size > torch.cuda.device_count()):
         raise RuntimeError(

@@ -97,10 +97,10 @@ def main(argv=None) -> dict:
 
     env_state, obs = runner.setup()
     with phase("iteration_first", "train iteration #1"):
-        env_state, obs, _, _ = runner.train_iteration(env_state, obs)
+        env_state, obs, _ = runner.train_iteration(env_state, obs)
     with phase("iteration", "train iteration x3 steady-state"):
         for _ in range(3):
-            env_state, obs, _, _ = runner.train_iteration(env_state, obs)
+            env_state, obs, _ = runner.train_iteration(env_state, obs)
     out = timer.metrics()
     out["iteration_fps"] = 3 * m / out["time/iteration"]
     print(f"  -> {out['iteration_fps']:,.0f} env-steps/s", flush=True)

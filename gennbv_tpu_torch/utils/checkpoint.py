@@ -5,7 +5,9 @@ The writer policy is the reference's (gennbv/callback.py:25-70), under the
 JAX package's names: periodic ``rl_model_<steps>_steps`` saves plus
 ``rl_model_best_<metric>``.  Each checkpoint is one ``torch.save`` file of
 host tensors: the policy's state_dict, the Adam state (mu and nu keyed by
-parameter name, and the count) and the global step.  It is written beside
+parameter name, and the count as a Python int) and the global step.  A
+save takes a module or its state_dict: the Runner saves the snapshot of
+the iteration it processes, whose policy has moved on.  It is written beside
 its name and then renamed, so a reader never sees a partial file.
 
 In a process group every rank calls ``save`` (under tensor parallelism the
@@ -35,12 +37,16 @@ class CheckpointManager:
     def _path(self, name: str) -> str:
         return os.path.join(self.ckpt_dir, name)
 
-    def save(self, name: str, policy: torch.nn.Module, opt_state: AdamState,
-             step: int):
-        payload = {"policy": _host(policy.state_dict()),
+    def save(self, name: str, policy: torch.nn.Module | dict,
+             opt_state: AdamState, step: int):
+        """Writes `policy` (a module, or a state_dict) and `opt_state`
+        (whose count is an int or a 0-d tensor) as checkpoint `name`."""
+        if isinstance(policy, torch.nn.Module):
+            policy = policy.state_dict()
+        payload = {"policy": _host(policy),
                    "opt_state": {"mu": _host(opt_state.mu),
                                  "nu": _host(opt_state.nu),
-                                 "count": opt_state.count},
+                                 "count": int(opt_state.count)},
                    "step": step}
         if dist.is_initialized() and dist.get_rank() != 0:
             return
@@ -59,11 +65,13 @@ class CheckpointManager:
     def restore(self, name: str, device: torch.device | str = "cpu"
                 ) -> tuple[dict, AdamState, int]:
         """(policy state_dict, AdamState, step) of a checkpoint, on
-        `device`."""
+        `device`; the count a 0-d int64 tensor there, as ``ppo.update``
+        keeps it."""
         raw = torch.load(self._path(name), map_location=device,
                          weights_only=True)
         opt = raw["opt_state"]
-        return raw["policy"], AdamState(opt["mu"], opt["nu"], opt["count"]), \
+        count = torch.tensor(opt["count"], dtype=torch.int64, device=device)
+        return raw["policy"], AdamState(opt["mu"], opt["nu"], count), \
             raw["step"]
 
     def restore_policy(self, name: str, device: torch.device | str = "cpu"

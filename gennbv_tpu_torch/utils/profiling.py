@@ -1,9 +1,11 @@
 """Phase timers and traces (port of ``gennbv_tpu/utils/profiling.py``).
 
-- :class:`PhaseTimer` -- named-phase wall-clock accounting, each phase
-  fenced by ``torch.cuda.synchronize()`` when it ran on a CUDA device (the
-  host returns from a launch before the card finishes), emitting the
-  reference-compatible ``time/*`` metric keys;
+- :class:`PhaseTimer` -- named-phase accounting, emitting the
+  reference-compatible ``time/*`` metric keys.  On a CUDA device (the
+  host returns from a launch before the card finishes) each phase is
+  fenced by ``torch.cuda.synchronize()``, or, for a loop that must not
+  wait (``events=True``), timed by CUDA events recorded at its ends and
+  read once the device has run them;
 - :func:`trace` -- a context manager around ``torch.profiler`` that writes
   a Chrome trace (``trace.json``, viewable in Perfetto or
   ``chrome://tracing``) of the enclosed steps, wired to the training CLI
@@ -20,31 +22,62 @@ import torch
 
 
 class PhaseTimer:
-    """Accumulates wall-clock per named phase.
+    """Accumulates the seconds of each named phase.
 
     with timer.phase("rollout", fence=device): ...
     metrics.update(timer.metrics())
-    """
 
-    def __init__(self):
-        self._acc: Dict[str, float] = {}
+    With ``events=True`` a phase on a CUDA device records a CUDA event at
+    each end instead of fencing: its seconds are the device's, from the
+    first event to the second, and ``take`` hands a finished iteration's
+    phases over to be read later, when the device has run them."""
+
+    def __init__(self, events: bool = False):
+        self.events = events
+        # per phase: seconds, and (start, end) CUDA event pairs
+        self._acc: Dict[str, list] = {}
 
     @contextlib.contextmanager
     def phase(self, name: str, fence: Optional[torch.device | str] = None):
         """Times the enclosed block; with `fence` a CUDA device, the time
         runs until that device has finished the block's work."""
+        on_card = fence is not None and torch.device(fence).type == "cuda"
+        if on_card and self.events:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            end.record()
+            self._acc.setdefault(name, []).append((start, end))
+            return
         t0 = time.perf_counter()
         yield
-        if fence is not None and torch.device(fence).type == "cuda":
+        if on_card:
             torch.cuda.synchronize(fence)
-        self._acc[name] = self._acc.get(name, 0.0) + time.perf_counter() - t0
+        self._acc.setdefault(name, []).append(time.perf_counter() - t0)
 
     def metrics(self) -> Dict[str, float]:
-        """``time/<phase>``: the seconds of each phase since the reset."""
-        return {f"time/{k}": v for k, v in self._acc.items()}
+        """``time/<phase>``: the seconds of each phase since the reset
+        (waiting for the device where a phase's end event has not been
+        reached yet)."""
+        def seconds(t) -> float:
+            if isinstance(t, float):
+                return t
+            start, end = t
+            if not end.query():
+                end.synchronize()
+            return start.elapsed_time(end) / 1e3
+        return {f"time/{k}": sum(map(seconds, v)) for k, v in self._acc.items()}
 
     def reset(self):
-        self._acc.clear()
+        self._acc = {}
+
+    def take(self) -> "PhaseTimer":
+        """The phases since the reset, as a timer of their own, and a
+        reset."""
+        taken = PhaseTimer(self.events)
+        taken._acc, self._acc = self._acc, {}
+        return taken
 
 
 @contextlib.contextmanager

@@ -259,14 +259,41 @@ def test_eval_launches_each_kernel_per_step(cuda):
 NARROW = dict(pose_mlp_hidden=32, grid_channels=4, fused_dim=32)
 
 
-def test_update_on_card_matches_cpu(cuda):
+def _kl_stop_target(ppo, run) -> tuple[float, int]:
+    """A target_kl that stops an update mid-run with a margin: `run`
+    (cfg) runs the update without a stop on the CPU while its minibatch
+    KLs are recorded; the stop goes at the first minibatch j whose KL is
+    at least 1.44 times every earlier one's, the threshold (1.5 x
+    target_kl) at the geometric mean of the two, 20% from each.  Returns
+    (target_kl, j)."""
+    kls, real = [], ppo._loss
+
+    def recording(*args):
+        loss, metrics = real(*args)
+        kls.append(float(metrics[3]))
+        return loss, metrics
+
+    ppo._loss = recording
+    try:
+        run()
+    finally:
+        ppo._loss = real
+    j = next(j for j in range(1, len(kls) - 1)
+             if kls[j] >= 1.44 * max(kls[:j]))
+    return (max(kls[:j]) * kls[j]) ** 0.5 / 1.5, j
+
+
+@pytest.mark.parametrize("stop", [False, True], ids=["all", "kl_stop"])
+def test_update_on_card_matches_cpu(cuda, stop):
     """One PPO update (8 minibatches of 32 rows over 4 shards, 2 epochs) at
     a narrow width, on the card and on the CPU from the same weights, data
-    and minibatches.  cuDNN and cuBLAS (full float32, TF32 off) sum in
-    another order than the CPU: the tolerances of tests/test_torch_ppo.py,
-    whose conv biases ahead of a BatchNorm, and the running means that
-    take them in, move by rounding noise only (their gradient is 0 in
-    exact arithmetic)."""
+    and minibatches, once with every minibatch applied and once with the
+    KL stop mid-run (both stop at the same minibatch; the card's gated
+    step replays the captured graph and skips the rest).  cuDNN and
+    cuBLAS (full float32, TF32 off) sum in another order than the CPU:
+    the tolerances of tests/test_torch_ppo.py, whose conv biases ahead of
+    a BatchNorm, and the running means that take them in, move by
+    rounding noise only (their gradient is 0 in exact arithmetic)."""
     from gennbv_tpu_torch import config, spec
     from gennbv_tpu_torch.algo import ppo
     from gennbv_tpu_torch.models import distributions
@@ -274,8 +301,9 @@ def test_update_on_card_matches_cpu(cuda):
 
     cpu = ActorCriticPolicy(config.ModelConfig(**NARROW),
                             torch.Generator().manual_seed(0), device="cpu")
+    start = {k: v.clone() for k, v in cpu.state_dict().items()}
     card = ActorCriticPolicy(config.ModelConfig(**NARROW), device="cuda")
-    card.load_state_dict(cpu.state_dict())
+    card.load_state_dict(start)
     m, n_envs = 128, 8
     rng = np.random.default_rng(0)
     obs = np.concatenate([rng.uniform(-8, 10, (m, spec.STATE_DIM)),
@@ -290,14 +318,25 @@ def test_update_on_card_matches_cpu(cuda):
     adv = torch.from_numpy(rng.normal(0, 1, m).astype(np.float32))
     data = (obs, actions, logp, out.value, adv, adv + out.value)
     cfg = config.PPOConfig(n_steps=16, batch_size=32, n_epochs=2,
-                           learning_rate=3e-4, minibatch_shards=4, target_kl=None)
+                           learning_rate=3e-3 if stop else 3e-4,
+                           minibatch_shards=4, target_kl=None)
     idx = ppo.minibatch_indices(cfg, m, n_envs, torch.Generator().manual_seed(1))
+
+    def run(policy, dev, cfg):
+        opt = ppo.make_optimizer(cfg, n_envs)
+        return ppo.update(policy, opt, cfg, opt.init(policy),
+                          *(x.to(dev) for x in data), num_envs=n_envs,
+                          indices=idx.to(dev))
+
+    n_done = 8
+    if stop:
+        scratch = ActorCriticPolicy(config.ModelConfig(**NARROW), device="cpu")
+        scratch.load_state_dict(start)
+        target, n_done = _kl_stop_target(ppo, lambda: run(scratch, "cpu", cfg))
+        cfg = dataclasses.replace(cfg, target_kl=target)
     results = []
     for policy, dev in ((cpu, "cpu"), (card, "cuda")):
-        opt = ppo.make_optimizer(cfg, n_envs)
-        state, metrics = ppo.update(policy, opt, cfg, opt.init(policy),
-                                    *(x.to(dev) for x in data), num_envs=n_envs,
-                                    indices=idx.to(dev))
+        state, metrics = run(policy, dev, cfg)
         results.append((policy.state_dict(), state, metrics))
     (sd_c, st_c, m_c), (sd_g, st_g, m_g) = results
     noise = ("encoder.grid_conv1.bias", "encoder.grid_conv2.bias",
@@ -306,7 +345,7 @@ def test_update_on_card_matches_cpu(cuda):
         assert sd_g[k].is_cuda
         np.testing.assert_allclose(sd_g[k].cpu().numpy(), v.numpy(), rtol=0,
                                    atol=3e-5 if k in noise else 2e-6, err_msg=k)
-    assert st_c.count == st_g.count == 8
+    assert int(st_c.count) == int(st_g.count) == n_done
     for k in st_c.mu:
         if k in noise:
             continue
@@ -314,9 +353,58 @@ def test_update_on_card_matches_cpu(cuda):
                                    rtol=1e-4, atol=5e-8, err_msg=k)
         np.testing.assert_allclose(st_g.nu[k].cpu().numpy(), st_c.nu[k].numpy(),
                                    rtol=1e-4, atol=1e-11, err_msg=k)
-    assert m_g.n_minibatches_done == m_c.n_minibatches_done == 8
+    assert float(m_g.n_minibatches_done) == float(m_c.n_minibatches_done) \
+        == n_done
     # the explained variance is 1 minus a ratio of float32 variances near 1
-    np.testing.assert_allclose(np.array(m_g), np.array(m_c), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose([float(x) for x in m_g],
+                               [float(x) for x in m_c], rtol=1e-5, atol=1e-6)
+
+
+def test_gated_adam_on_card_equals_host_adam(cuda):
+    """The update's device-side Adam step (ppo.Optimizer.gated_apply_:
+    count, learning rate and bias corrections read on the device, the
+    clip and the KL gate as selects) against the host-side one
+    (apply_, with host floats, the port's step before the update ran on
+    the device), on the card: bit for bit where a step is kept, nothing
+    moved where it is not, with the clip engaged and not; and a division
+    by a device scalar (ppo._divided) equals PyTorch's division by the
+    host float at 10,000 random scalars."""
+    from gennbv_tpu_torch import config
+    from gennbv_tpu_torch.algo import ppo
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    xs = [torch.randn(4099, device="cuda", generator=gen) * 10]
+    for s in torch.rand(10_000, device="cuda", generator=gen).exp().unbind():
+        assert torch.equal(ppo._divided(xs, s)[0], xs[0] / float(s)), float(s)
+    rng = np.random.default_rng(4)
+    for max_norm in (10.0, 0.3):
+        cfg = config.PPOConfig(learning_rate=1e-2, lr_schedule="linear",
+                               n_epochs=1, n_steps=4, batch_size=8,
+                               total_iters=5, max_grad_norm=max_norm)
+        opt = ppo.make_optimizer(cfg, 8)
+        tables = ppo.schedule_tables(opt, "cuda")
+        p0 = [rng.normal(size=(300, 257)).astype(np.float32),
+              rng.normal(size=7).astype(np.float32)]
+        host = [[torch.from_numpy(x.copy()).cuda() for x in p0]] + [
+            [torch.zeros(x.shape, device="cuda") for x in p0] for _ in range(2)]
+        dev = [[t.clone() for t in ts] for ts in host]
+        count, dev_count = 0, torch.zeros((), dtype=torch.int64, device="cuda")
+        for k in range(30):
+            g = [torch.from_numpy(rng.normal(0, 0.2, x.shape).astype(np.float32))
+                 .cuda() for x in p0]
+            keep = k % 3 != 1
+            before = [[t.clone() for t in ts] for ts in dev]
+            norm = ppo.global_norm(g)
+            opt.gated_apply_(dev[0], [x.clone() for x in g], dev[1], dev[2],
+                             dev_count, norm, tables,
+                             torch.tensor(keep, device="cuda"))
+            if keep:
+                count = opt.apply_(host[0], g, host[1], host[2], count,
+                                   float(norm))
+            assert int(dev_count) == count
+            for a, b in zip(dev, host if keep else before):
+                for x, y in zip(a, b):
+                    assert torch.equal(x, y), (max_norm, k)
 
 
 def test_train_cli_on_card(cuda, tmp_path, capsys):
@@ -345,9 +433,10 @@ def test_train_cli_on_card(cuda, tmp_path, capsys):
 
 
 def test_training_reproduces_itself(cuda, tmp_path):
-    """Two Runners from one seed, 2 iterations each at 8 envs with an eval
-    and a checkpoint: the same parameters, BatchNorm statistics, Adam
-    state and logged metrics (but time/*), bit for bit."""
+    """Three Runners from one seed, 2 iterations each at 8 envs with an
+    eval and a checkpoint: two at pipeline depth 2 and one at depth 1.
+    The same parameters, BatchNorm statistics, Adam state and logged
+    metrics (but time/*), bit for bit."""
     from gennbv_tpu_torch import config
     from gennbv_tpu_torch.algo.runner import Runner
     from gennbv_tpu_torch.env import make_scenes
@@ -359,13 +448,15 @@ def test_training_reproduces_itself(cuda, tmp_path):
         "env.renderer.resolution=16", "env.scene.num_scenes=8",
         "ppo.n_steps=8", "ppo.batch_size=16", "runner.eval_freq=2",
         "runner.save_freq=2"))
+    assert cfg.runner.pipeline_depth == 2
     scenes = make_scenes(cfg.env.scene, 16)
     eval_scenes = make_scenes(config.SceneConfig(num_scenes=4, seed=100), 16)
     snaps = []
-    for run in range(2):
+    for run, depth in enumerate((2, 2, 1)):
         log_dir = str(tmp_path / f"run{run}")
-        runner = Runner(cfg, scenes=scenes, eval_scenes=eval_scenes,
-                        log_dir=log_dir)
+        runner = Runner(config.apply_overrides(
+            cfg, (f"runner.pipeline_depth={depth}",)), scenes=scenes,
+            eval_scenes=eval_scenes, log_dir=log_dir)
         runner.train(2)
         torch.cuda.synchronize()
         snaps.append(snapshot(runner, read_logged(log_dir)))
@@ -373,7 +464,8 @@ def test_training_reproduces_itself(cuda, tmp_path):
     assert [rec["step"] for rec in snaps[0]["logged"]] == [1, 2]
     assert "eval/final_coverage" in snaps[0]["logged"][1]
     assert snaps[0]["count"] > 0
-    assert first_difference(*snaps) is None
+    assert first_difference(snaps[0], snaps[1]) is None
+    assert first_difference(snaps[0], snaps[2]) is None
 
 
 def test_dda_step_kernels_equal_plain(cuda):

@@ -64,7 +64,8 @@ def _floored(cfg):
 @pytest.fixture(scope="module")
 def dirs(tmp_path_factory):
     root = tmp_path_factory.mktemp("mesh")
-    return {name: str(root / name) for name in ("one", "tp", "cli")}
+    return {name: str(root / name)
+            for name in ("one", "tp", "cli", "pipe_one", "pipe")}
 
 
 @pytest.fixture(scope="module")
@@ -78,6 +79,8 @@ def one(dirs):
         "train1": R.train_case("cpu", _cfg(), 1),
         "train_full": R.train_case("cpu", _cfg(model=FULL), 2),
         "saved": R.save_case("cpu", _cfg(model=FULL), dirs["one"]),
+        "pipelined": R.pipelined_case("cpu", _cfg(depth=1), 2,
+                                      dirs["pipe_one"]),
     }
 
 
@@ -93,9 +96,10 @@ def w2(one, dirs):
         ("restore_case", (tp, dirs["one"])),
         ("restore_case", (_cfg(num_devices=2, model=FULL), dirs["one"])),
         ("update_case", (_floored(_cfg(num_devices=2)),)),
-    ])
+        ("pipelined_case", (_cfg(num_devices=2, depth=2), 2, dirs["pipe"])),
+    ], device="cpu")
     keys = ("mesh", "update", "update_gather", "train", "saved", "restored",
-            "resumed", "update_floor")
+            "resumed", "update_floor", "pipelined")
     return [dict(zip(keys, rank)) for rank in out]
 
 
@@ -110,7 +114,7 @@ def w4():
         ("train_case", (_cfg(num_devices=4, num_slices=2), 1)),
         ("train_case", (_cfg(num_devices=4, model_axis=2, model=FULL), 2)),
         ("train_case", (_cfg(num_devices=4, model=FULL), 2)),
-    ])
+    ], device="cpu")
     keys = ("mesh", "mesh_slices", "mesh_tp", "update", "train", "multislice",
             "tp", "dp_full")
     return [dict(zip(keys, rank)) for rank in out]
@@ -290,6 +294,26 @@ def test_two_iterations_match_one_process(one, w2, w4, world):
     for res in ranks[1:]:
         for k, v in ranks[0]["train"]["state"].items():
             assert np.array_equal(res["train"]["state"][k], v), k
+
+
+def test_pipelined_ranks_match_one_process(one, w2):
+    """runner.pipeline_depth 2 on two gloo ranks, with an eval and a
+    checkpoint every iteration (rank 0 evaluates; the checkpoints' gathers
+    and the eval's broadcast run between dispatched iterations, in the
+    same order on both ranks), against one process at depth 1: the same
+    rollout and update metrics at each iteration, within
+    tests/test_runner.py's tolerances, the same checkpoint files, and
+    the same policy on both ranks."""
+    want = one["pipelined"]
+    got = w2[0]["pipelined"]
+    assert [rec["step"] for rec in got["logged"]] == [1, 2]
+    for g, w in zip(got["logged"], want["logged"]):
+        _held_metrics(g, w)
+        assert "eval/final_coverage" in g
+    assert got["files"] == want["files"]
+    assert f"rl_model_{2 * 8 * 8}_steps" in got["files"]
+    for k, v in got["state"].items():
+        assert np.array_equal(w2[1]["pipelined"]["state"][k], v), k
 
 
 def test_multislice_matches_one_process(one, w4):

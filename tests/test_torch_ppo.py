@@ -4,6 +4,7 @@ layout, and whole updates at a narrow HybridEncoder from the same weights,
 data and minibatch indices; then the learner tests of tests/test_ppo.py
 on the port alone."""
 import test_torch_threads  # noqa: F401  (one torch thread a worker)
+import contextlib
 import dataclasses
 
 import jax
@@ -271,6 +272,112 @@ def test_kl_stop_mid_run(narrow, monkeypatch):
     assert pm.n_minibatches_done == stop
 
 
+# every Tensor method that brings a value to the host
+HOST_READS = ("item", "tolist", "cpu", "numpy", "__bool__", "__float__",
+              "__int__")
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """Raises from any Tensor method that reads a value on the host: on a
+    card each would wait for the device."""
+    def refuse(name):
+        def read(*args, **kwargs):
+            raise AssertionError(f"Tensor.{name} read a value on the host")
+        return read
+
+    with pytest.MonkeyPatch.context() as mp:
+        for name in HOST_READS:
+            mp.setattr(torch.Tensor, name, refuse(name))
+        yield
+
+
+def test_update_with_a_kl_stop_reads_nothing_on_the_host(narrow):
+    """One update with a stop mid-run (test_kl_stop_mid_run's case) runs
+    with every host read refused; its state and metrics, read afterwards,
+    equal JAX's at the tolerances above."""
+    model, variables = narrow
+    jcfg, pcfg = _cfg(target_kl=0.004, learning_rate=3e-3)
+    ts = _fresh_ts(variables, jcfg)
+    data = _rollout_data(model, variables, 50)
+    rng = jax.random.PRNGKey(50)
+    ts2, jm = _jax_update(model, jcfg, ts, data, rng)
+    assert 0 < float(jm.n_minibatches_done) < 8
+    policy, state = _port(ts)
+    indices = _jax_indices(jcfg, N_ENVS * N_STEPS, N_ENVS, rng)
+    with no_host_reads():
+        with pytest.raises(AssertionError, match="Tensor.item"):
+            torch.zeros(()).item()
+        state, pm = _port_update(policy, pcfg, state, data, indices)
+    assert isinstance(state.count, torch.Tensor)
+    _assert_same(policy, state, pm, ts2, jm)
+
+
+@pytest.mark.parametrize("schedule", ["linear", "constant"])
+def test_schedule_tables_equal_the_optimizer(schedule):
+    """The device tables give Optimizer.lr(c) and apply_'s bias
+    corrections of step c + 1 bit for bit at every count: across the
+    linear anneal's end (and, under the constant schedule, the constant)
+    and past the step where both corrections settle at 1.0; and the
+    flagship's anneal (1,280,000 updates) at sampled counts."""
+    cfg = PPOConfig(learning_rate=3e-4, lr_schedule=schedule, n_epochs=2,
+                    n_steps=4, batch_size=8, total_iters=5)
+    opt = ppo.make_optimizer(cfg, 8)
+    tables = ppo.schedule_tables(opt, "cpu")
+    settle = tables.bias.shape[0]
+    assert 17_000 < settle < 18_000       # 1 - 0.999^step reaches 1.0
+    assert tables.lr.shape[0] == (
+        opt.total_updates + 1 if schedule == "linear" else 1)
+    for c in range(settle + 30):
+        lr, bc1, bc2 = tables.at(torch.tensor(c))
+        assert float(lr) == opt.lr(c), c
+        assert (float(bc1), float(bc2)) == opt.bias_corrections(c + 1), c
+    flagship = dataclasses.replace(opt, learning_rate=1e-4,
+                                   total_updates=1_280_000)
+    lr_table = ppo.schedule_tables(flagship, "cpu").lr
+    for c in [*range(0, 1_280_001, 997), 1_279_999, 1_280_000]:
+        assert float(lr_table[c]) == flagship.lr(c), c
+
+
+@pytest.mark.parametrize("max_norm", [10.0, 0.3])
+def test_gated_step_equals_apply(max_norm):
+    """gated_apply_ (count and schedule on the device, the clip and the
+    keep as selects) against apply_ (host count and floats): bit for bit
+    where a step is kept, nothing moved where it is not."""
+    cfg = PPOConfig(learning_rate=1e-2, lr_schedule="linear", n_epochs=1,
+                    n_steps=4, batch_size=8, total_iters=5,
+                    max_grad_norm=max_norm)
+    opt = ppo.make_optimizer(cfg, 8)
+    tables = ppo.schedule_tables(opt, "cpu")
+    rng = np.random.default_rng(4)
+    p0 = [rng.normal(size=(5, 3)).astype(np.float32),
+          rng.normal(size=7).astype(np.float32)]
+    host = [[torch.from_numpy(x.copy()) for x in p0]] + [
+        [torch.zeros(x.shape) for x in p0] for _ in range(2)]
+    dev = [[t.clone() for t in ts] for ts in host]
+    count, dev_count = 0, torch.zeros((), dtype=torch.int64)
+    for k in range(30):
+        g = [torch.from_numpy(rng.normal(0, 0.2, x.shape).astype(np.float32))
+             for x in p0]
+        keep = k % 3 != 1
+        go = None if k < 6 else torch.tensor(keep)
+        before = [[t.clone() for t in ts] for ts in dev]
+        norm = ppo.global_norm(g)
+        opt.gated_apply_(dev[0], [x.clone() for x in g], dev[1], dev[2],
+                         dev_count, norm, tables, go)
+        if go is None or keep:
+            count = opt.apply_(host[0], g, host[1], host[2], count,
+                               float(norm))
+            want = host
+        else:
+            want = before
+        assert int(dev_count) == count
+        for a, b in zip(dev, want):
+            for x, y in zip(a, b):
+                assert torch.equal(x, y), k
+    assert count == 22
+
+
 def test_minibatch_rows_are_the_shard_major_gather():
     """flat_rows gathers what the JAX learner's shard-major relayout and
     per-shard take gather (ppo.py:109-114, 203-206), and an epoch of
@@ -436,8 +543,8 @@ def test_update_runs_all_minibatches_without_target_kl():
 
 class TestApplyModeParity:
     """apply_mode "select" and "cond" give the same update in the JAX
-    package; the port takes either (one path: the host decides) and
-    rejects anything else."""
+    package; the port takes either (one path: the gated step computes and
+    selects) and rejects anything else."""
 
     def _run(self, apply_mode, target_kl):
         cfg = PPOConfig(batch_size=64, n_epochs=3, learning_rate=1e-3,

@@ -4,6 +4,7 @@ checkpoints, logger, profiling and the train CLIs on the CPU (the
 Runner tests of tests/test_runner.py; its multi-device ones are in
 tests/test_torch_mesh.py)."""
 import test_torch_threads  # noqa: F401  (one torch thread a worker)
+import contextlib
 import dataclasses
 import json
 import os
@@ -23,7 +24,7 @@ from gennbv_tpu.env import ReconEnv as JaxReconEnv
 from gennbv_tpu.env import scene as jax_scene
 from gennbv_tpu.models import init_policy
 from gennbv_tpu_torch import config as pt_config
-from gennbv_tpu_torch.algo import gae, ppo, rollout, runner
+from gennbv_tpu_torch.algo import gae, ppo, repro, rollout, runner
 from gennbv_tpu_torch.env import ReconEnv, make_scenes
 from gennbv_tpu_torch.models import convert
 from gennbv_tpu_torch.models import distributions as pt_dist
@@ -287,10 +288,116 @@ def test_two_runs_at_one_seed_are_bit_equal(tmp_path):
                            va["action_net.weight"])
 
 
-def test_single_device_settings_accepted():
+def test_single_device_settings_accepted(tmp_path):
+    """The single-device settings parse, and runner.pipeline_depth acts:
+    iteration k's host work (fetch, log, eval, checkpoints) runs once
+    iteration k + depth has been dispatched, and the queue drains at the
+    end."""
     for override in ("runner.num_devices=1", "runner.pipeline_depth=4",
                      "runner.obs_dtype=bfloat16"):
         pt_config.apply_overrides(pt_config.Config(), (override,))
+    want = {1: ["d1", "d2", "p1", "d3", "p2", "p3"],
+            3: ["d1", "d2", "d3", "p1", "p2", "p3"]}
+    for depth, order in want.items():
+        r = _runner(tmp_path, f"depth{depth}", _tiny(pipeline_depth=depth))
+        seen = []
+        dispatch, process = r._dispatch, r._process_iter
+
+        def dispatched(*args, _dispatch=dispatch):
+            out = _dispatch(*args)
+            seen.append(f"d{r.iteration + 1}")
+            return out
+
+        def processed(entry, _process=process):
+            seen.append(f"p{entry.iteration}")
+            return _process(entry)
+
+        r._dispatch, r._process_iter = dispatched, processed
+        r.train(3, log=False)
+        assert seen == order, depth
+
+
+def _depth_run(tmp_path, depth: int, iters: int = 4):
+    """A Runner at `depth` from seed 5, evaluated and checkpointed every
+    iteration; its snapshot (state and logged metrics)."""
+    cfg = _tiny(seed=5, eval_freq=1, pipeline_depth=depth)
+    eval_scenes = make_scenes(pt_config.SceneConfig(num_scenes=2, seed=9), 16,
+                              "cpu")
+    r = _runner(tmp_path, f"depth{depth}", cfg, eval_scenes=eval_scenes)
+    r.train(iters)
+    r.close()
+    return r, repro.snapshot(r, repro.read_logged(str(tmp_path / f"depth{depth}")))
+
+
+def _same_payload(a, b, where: str):
+    if isinstance(a, dict):
+        assert sorted(a) == sorted(b), where
+        for k in a:
+            _same_payload(a[k], b[k], f"{where}/{k}")
+    elif isinstance(a, torch.Tensor):
+        assert torch.equal(a, b), where
+    else:
+        assert a == b, where
+
+
+def test_pipeline_depths_are_bit_equal(tmp_path):
+    """runner.pipeline_depth 1, 2 and 3 from one seed, with an eval and a
+    checkpoint every iteration: the same parameters, BatchNorm stats,
+    Adam state and logged metrics (eval's too) bit for bit, and the same
+    checkpoint files (every step's, both best ones, the runner state);
+    the last step's checkpoint holds the final policy.  The policy is
+    updated in place while iteration k waits for its host work, so each
+    eval and checkpoint must read iteration k's snapshot for this to
+    hold.  A run resumed from depth 2's checkpoints equals one resumed
+    from depth 1's."""
+    runs = {depth: _depth_run(tmp_path, depth) for depth in (1, 2, 3)}
+    base, snap = runs[1]
+    assert [rec["step"] for rec in snap["logged"]] == [1, 2, 3, 4]
+    assert all("eval/final_coverage" in rec for rec in snap["logged"])
+    models = {d: tmp_path / f"depth{d}" / "models" for d in runs}
+    files = sorted(os.listdir(models[1]))
+    assert {f"rl_model_{16 * k}_steps" for k in range(1, 5)} <= set(files)
+    assert {"rl_model_best_episode_reward", "rl_model_best_eval_coverage",
+            "runner_state.json"} <= set(files)
+    last = torch.load(models[1] / "rl_model_64_steps", weights_only=True)
+    _same_payload(last["policy"], base.variables(), "final policy")
+    for depth in (2, 3):
+        assert repro.first_difference(snap, runs[depth][1]) is None, depth
+        assert sorted(os.listdir(models[depth])) == files
+        for name in files:
+            if name.endswith(".json"):
+                a, b = (json.load(open(models[d] / name)) for d in (1, depth))
+            else:
+                a, b = (torch.load(models[d] / name, weights_only=True)
+                        for d in (1, depth))
+            _same_payload(a, b, f"depth {depth} {name}")
+
+    resumed = []
+    for depth in (1, 2):
+        r = _runner(tmp_path, f"resumed{depth}", _tiny(seed=5))
+        assert r.restore(str(models[depth])) == 64
+        r.train(5, log=False)
+        resumed.append(repro.snapshot(r, []))
+    assert repro.first_difference(*resumed) is None
+
+
+def test_train_iteration_reads_nothing_on_the_host(tmp_path):
+    """From the second iteration on, Runner.train_iteration (the rollout,
+    GAE, the update, the packed metrics) runs with every host read
+    refused; its metrics, read afterwards, equal those of a Runner from
+    the same seed left to read."""
+    from test_torch_ppo import no_host_reads
+    packed = []
+    for refused in (False, True):
+        r = _runner(tmp_path, f"run{refused}")
+        env_state, obs = r.setup()
+        env_state, obs, _ = r.train_iteration(env_state, obs)
+        with no_host_reads() if refused else contextlib.nullcontext():
+            env_state, obs, metrics = r.train_iteration(env_state, obs)
+        packed.append(metrics.tolist())
+    assert packed[0] == packed[1]
+    assert len(packed[0]) == len(runner._METRIC_KEYS)
+    assert all(np.isfinite(packed[0]))
 
 
 def test_bfloat16_observations(tmp_path):

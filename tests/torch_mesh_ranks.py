@@ -9,6 +9,7 @@ values returned are numpy arrays and floats (pickled back to the test).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -16,7 +17,9 @@ import torch.distributed as dist
 
 from gennbv_tpu_torch import config, spec
 from gennbv_tpu_torch.algo import ppo
+from gennbv_tpu_torch.algo.repro import read_logged
 from gennbv_tpu_torch.algo.runner import Runner
+from gennbv_tpu_torch.env import make_scenes
 from gennbv_tpu_torch.models import distributions
 from gennbv_tpu_torch.models.policy import ActorCriticPolicy
 from gennbv_tpu_torch.parallel import mesh as mesh_lib
@@ -44,7 +47,7 @@ METRIC_RTOL, METRIC_ATOL = 1e-6, 1e-6
 def tiny(num_devices: int = 0, num_slices: int = 1, model_axis: int = 1,
          num_envs: int = 8, n_steps: int = 8, batch_size: int = 16,
          shards: int = 8, model: config.ModelConfig = NARROW,
-         total_iters: int = 2) -> config.Config:
+         total_iters: int = 2, depth: int = 2) -> config.Config:
     """tests/test_runner.py's tiny config at a 16x16 camera and grid."""
     return config.Config(
         env=config.EnvConfig(
@@ -60,7 +63,8 @@ def tiny(num_devices: int = 0, num_slices: int = 1, model_axis: int = 1,
         runner=config.RunnerConfig(seed=1, save_freq=0,
                                    num_devices=num_devices,
                                    num_slices=num_slices,
-                                   model_axis=model_axis))
+                                   model_axis=model_axis,
+                                   pipeline_depth=depth))
 
 
 def one_process(cfg: config.Config) -> config.Config:
@@ -168,7 +172,8 @@ def update_case(device, cfg: config.Config, seed: int = 5) -> dict:
                                     mesh=mesh)
     return {**first, "state": _numpy(policy.state_dict()),
             "mu": _numpy(state.mu), "nu": _numpy(state.nu),
-            "count": state.count, "metrics": metrics._asdict(),
+            "count": int(state.count),
+            "metrics": {k: float(v) for k, v in metrics._asdict().items()},
             "collectives": rec.calls,
             "n_params": sum(p.numel() for p in params.values())}
 
@@ -179,6 +184,27 @@ def train_case(device, cfg: config.Config, iters: int) -> dict:
     runner = Runner(cfg, device=device)
     metrics = runner.train(iters, log=False)
     return {"metrics": metrics, "state": _numpy(runner.variables())}
+
+
+def pipelined_case(device, cfg: config.Config, iters: int,
+                   log_dir: str) -> dict:
+    """`iters` iterations of Runner.train at the config's pipeline depth,
+    with an eval (2 held-out scenes) and a checkpoint every iteration
+    into `log_dir`: the whole policy, and on rank 0 the metrics it logged
+    and the checkpoint files it wrote."""
+    cfg = dataclasses.replace(cfg, runner=dataclasses.replace(
+        cfg.runner, eval_freq=1, save_freq=1))
+    eval_scenes = make_scenes(config.SceneConfig(num_scenes=2, seed=9), 16,
+                              device)
+    runner = Runner(cfg, eval_scenes=eval_scenes, log_dir=log_dir,
+                    device=device)
+    runner.train(iters)
+    runner.close()
+    if runner.rank != 0:       # rank 0 writes, perhaps still
+        return {"state": _numpy(runner.variables())}
+    return {"logged": read_logged(log_dir),
+            "files": sorted(os.listdir(runner.ckpt.ckpt_dir)),
+            "state": _numpy(runner.variables())}
 
 
 def probe_obs(seed: int = 9) -> torch.Tensor:

@@ -6,34 +6,42 @@
 Phases, in order; any failure raises and the script exits non-zero:
 1. a CUDA card must be present; print its name and power limit, the torch
    version and nvcc's;
-2. build the three kernels from gennbv_tpu_torch/csrc, one nvcc process per
+2. build the four kernels from gennbv_tpu_torch/csrc, one nvcc process per
    source, all started together (each timed);
 3. hold each kernel bit-equal to its plain PyTorch version at the shapes of
    the paths below and time both, with the bound of the card and one
-   PyTorch library call where one computes the same function; check under
+   PyTorch library call where one computes the same function, warm
+   (back-to-back calls) and cold (one call after an L2 flush); check under
    torch.profiler that each wrapper call is one device launch of its
    kernel:
    - the 400x400 held-out eval (50 envs, the 50 eval scenes' surface
      capacity Q, 20^3 grid): the fused splat z-buffer + visibility, the hit
-     scatter and the carve gather;
-   - the 128x128 flagship rollout (256 envs, Q = 11264): the same three;
+     scatter, the carve gather and the exact scatter-min z-buffer;
+   - the 128x128 flagship rollout (256 envs, Q = 11264): the same four;
    - the 128x128 DDA step of phase 9: the hit scatter of every pixel
      ([256, 16384] points) and the gather of the foreground mask (a {0,1}
      image, 256 x 128^2 x 8000);
    - phase 10's converted scenes: the three at the training set's Q
      (256 envs, 128x128) and at Q - 3 (the gather's scalar path), and at
      the held-out set's Q (50 envs, 400x400);
+   - tools/bench_scatter.py's defaults (256 x 11264 at 128x128, its
+     numpy draws): the scatter-min z-buffer;
    and the gather once more on an image with planted values (bf16 ties,
    -0.0, a negative, empty pixels), and, without timing, at its edge
    cases at both image sizes: q of 1, 3 and 4, a ragged q and index
    arrays that are contiguous views off 16-byte alignment (the scalar
-   path);
+   path); the scatter-min once more on planted inputs (a pile-up on four
+   pixels, an env with no valid point, negative depths, pixels that get
+   only -0.0 or only +0.0) and, without timing, at Q of 1, 0 and a
+   ragged Q;
 4. run the mapping golden on the card (tests/goldens/mapping_golden.npz,
-   tests/test_goldens.py's tolerances) through the three kernels;
+   tests/test_goldens.py's tolerances) through the three kernels of the
+   splat path;
 5. the rollout at the flagship size: 256 procedural scenes, 256 envs,
    128x128 camera, R=64 render grid, full-width HybridEncoder policy from a
    seeded generator, reset + collect(n_steps=128).  Checks the outputs and
-   that each kernel ran once per env step; prints env-steps/s and the
+   that each kernel of the splat path ran once per env step (the exact
+   scatter-min never, here and in phases 4-14); prints env-steps/s and the
    device-time breakdown of 8 steps (torch.profiler);
 6. the held-out eval at full size: 50 procedural scenes of seed 100, R=64,
    400x400 camera, eval_env_config (30-step episodes, coverage reward
@@ -111,7 +119,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    exact launch count and finite metrics; prints the convert's seconds,
    Q, iteration seconds, env-steps/s and peak memory.
 11. the continuous-control path at the CLI's full width, which launches
-   none of the three kernels: train_rsl.main --task drone_velocity
+   none of the kernels: train_rsl.main --task drone_velocity
    --num_envs 4096 --num_steps_per_env 24 --hidden 512 256 128 (the
    default ContinuousPPOConfig: 5 epochs x 4 minibatches of 24,576 rows,
    adaptive KL) for 3 iterations into a temporary log dir, saving each,
@@ -158,7 +166,7 @@ Phases, in order; any failure raises and the script exits non-zero:
       finite coverage, envs 0-1 bit-equal to the CPU step by step (as
       phase 9); prints Q, env-steps/s and peak memory.
 13. the off-policy family and the all-families example, which launch
-   none of the three kernels, each part's seconds printed:
+   none of the kernels, each part's seconds printed:
    a. SAC, TD3 and DDPG through OffPolicyRunner on 4,096 drones at the
       default OffPolicyConfig (MLPs 256-256, batch 256, a buffer of
       131,072 = 32 x 4,096, learning_starts 1,000, tau 0.005),
@@ -207,6 +215,24 @@ Phases, in order; any failure raises and the script exits non-zero:
       gloo, and dryrun_multichip(4) (with its env 2 x model 2 tensor-
       parallel run) on four CPU ranks over gloo, as DTensor's collectives
       over gloo crashed on a shared card; prints their seconds.
+15. the exact z-buffer path (renderer.zbuf_impl=scatter: the scatter-min
+   kernel once a step, the gather twice, the hit scatter once, the fused
+   splat never), each part's seconds printed:
+   a. phase 5's 256 scenes, 256 envs, 128x128, R=64, the full-width
+      HybridEncoder from a seeded generator: reset + 16 steps with each
+      kernel's launches checked a step and envs 0-1 held to the port on
+      the CPU (as phase 9), then reset + collect(n_steps=128) with exact
+      launches and the outputs checked; prints env-steps/s, the device-
+      busy share of 8 more steps and peak memory;
+   b. phase 6's held-out eval (50 scenes of seed 100, 400x400, 30 steps;
+      no init-view cache under scatter): exact launches, finite results;
+      prints env-steps/s and the device-busy share;
+   c. train_eval_gennbv.main on the flagship recipe with
+      env.renderer.zbuf_impl=scatter, 2 iterations and an eval under
+      runner.eval_camera=400: exact launches, finite metrics; prints each
+      iteration's seconds;
+   d. python -m gennbv_tpu_torch.tools.bench_scatter at its defaults:
+      every form's line, the kernel bit-equal to the library scatter-min.
 The meshes are converted before phase 3, which times the kernels at
 their Q.  The last two lines of stdout are the kernel summary with the card's name
 and power limit before them, then the result line
@@ -262,9 +288,9 @@ from gennbv_tpu_torch.models.policy import ActorCriticPolicy
 from gennbv_tpu_torch.models import distributions
 from gennbv_tpu_torch.ops import (_cuda, backproject, camera, carve, fp32,
                                   fused_splat, gather, render, scatter, splat,
-                                  voxel)
+                                  voxel, zbuf_scatter)
 from gennbv_tpu_torch.examples import custom_env_families
-from gennbv_tpu_torch.tools import convert_dataset, post_run
+from gennbv_tpu_torch.tools import bench_scatter, convert_dataset, post_run
 from gennbv_tpu_torch.train import play, train_eval_gennbv, train_rsl
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -297,6 +323,9 @@ LEGGED_PROFILE_STEPS = 4
 LEGGED_ZOO = ("anymal_b_velocity", "anymal_c_velocity", "cassie_velocity")
 REC_ITERS = 2
 TERRAIN_SCENES, TERRAIN_STEPS = 256, 16
+# phase 15: the exact z-buffer path's steps held to the CPU, its training
+# iterations
+EXACT_CPU_STEPS, EXACT_ITERS = 16, 2
 # tests/test_torch_legged.py's tolerance of a control step from the same
 # state (of each field's largest magnitude), and the fields it holds
 LEGGED_SCALE_TOL = 1e-3
@@ -329,6 +358,10 @@ MLP_RTOL, MLP_ATOL = 1e-5, 1e-6
 # below charge every arithmetic, compare and integer operation at
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# a cold call (_time_cold_ms): twice the H100's 50 MB L2 zeroed before it,
+# and a spin of this many cycles (~0.1 ms) ahead of it on the device
+L2_FLUSH_BYTES = 100 * 2 ** 20
+COLD_SPIN_CYCLES = 200_000
 # the profiler's own kernels on each side of a profiled run, their
 # length, the takes of a profile, and the most pads a profile lost on
 # each side (see _profiled)
@@ -349,6 +382,9 @@ KERNELS = {
     "zbuf_visible": ("gennbv_tpu_torch/csrc/zbuf_visible.cu",
                      "gennbv_tpu/ops/pallas_splat.py:80",
                      fused_splat.zbuf_visible),
+    "zbuf_scatter_min": ("gennbv_tpu_torch/csrc/zbuf_scatter_min.cu",
+                         "tools/bench_scatter.py:94",
+                         zbuf_scatter.zbuf_scatter_min),
 }
 
 
@@ -357,7 +393,25 @@ PORT_KERNEL_FUNCTIONS = {
     "gather_image": "gather_image_kernel",
     "scatter_cells_any": "scatter_cells_any_kernel",
     "zbuf_visible": "zbuf_visible_cluster_kernel",
+    "zbuf_scatter_min": "zbuf_scatter_min_kernel",
 }
+
+
+def splat_expect(k: int) -> dict:
+    """Each kernel's launches in a run of k env steps (resets and init-view
+    caches counted as steps) on the splat path under zbuf_impl mxu or
+    pallas: the fused splat, the hit scatter and the carve gather once a
+    step; the exact scatter-min z-buffer never."""
+    return {"gather_image": k, "scatter_cells_any": k, "zbuf_visible": k,
+            "zbuf_scatter_min": 0}
+
+
+def exact_zbuf_expect(k: int) -> dict:
+    """The same under zbuf_impl=scatter (ops/splat.py::zbuf_scatter_vis_px):
+    the scatter-min z-buffer once a step, the gather twice (the visibility
+    and the carve), the hit scatter once, the fused splat never."""
+    return {"gather_image": 2 * k, "scatter_cells_any": k, "zbuf_visible": 0,
+            "zbuf_scatter_min": k}
 
 
 def card_line() -> str:
@@ -390,8 +444,8 @@ def phase_device() -> str:
 
 
 def phase_build() -> dict:
-    """Each kernel's library built afresh from the checkout, the three nvcc
-    processes at once; returns the seconds each build took."""
+    """Each kernel's library built afresh from the checkout, one nvcc
+    process a source, all at once; returns the seconds each build took."""
     def build(name: str) -> float:
         so = _cuda.library_path(name)
         if so.exists():
@@ -403,7 +457,7 @@ def phase_build() -> dict:
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
         secs = dict(zip(KERNELS, pool.map(build, KERNELS)))
     for name, s in secs.items():
-        print(f"build: {name}.cu in {s:.2f} s (three builds at once)")
+        print(f"build: {name}.cu in {s:.2f} s ({len(KERNELS)} builds at once)")
     return secs
 
 
@@ -423,6 +477,28 @@ def _time_ms(fn, trials: int = 21, calls: int = 10) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def _time_cold_ms(fn, trials: int = 21) -> float:
+    """Median over trials of one call's time from CUDA events, each call
+    made after the L2 is flushed (L2_FLUSH_BYTES zeroed) and behind a spin
+    kernel that keeps the device busy while the host enqueues the call:
+    the events time the device's work on inputs that must come from HBM,
+    as the bound assumes."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    times = []
+    for _ in range(trials):
+        flush.zero_()
+        torch.cuda._sleep(COLD_SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
     return statistics.median(times)
 
 
@@ -518,7 +594,8 @@ def profile_calls(fn, calls: int = 20) -> tuple[float, float, set]:
 def _case(label, name, kernel, plain, library, nbytes, ops) -> dict:
     """Kernel vs plain version, bit for bit; one device launch of the
     kernel per wrapper call; then timed beside the library call and the
-    bound."""
+    bound: warm (back-to-back calls, the inputs in L2 where they fit) and
+    cold (one call after an L2 flush)."""
     err = _equal(label, kernel(), plain())
     per_call, device_ms, names = profile_calls(kernel)
     if per_call != 1 or not all(PORT_KERNEL_FUNCTIONS[name] in n for n in names):
@@ -529,16 +606,19 @@ def _case(label, name, kernel, plain, library, nbytes, ops) -> dict:
     res = {"max_abs_err": err, "ms": _time_ms(kernel), "plain_ms": _time_ms(plain),
            "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": None if library is None else _time_ms(library),
+           "cold_ms": _time_cold_ms(kernel),
+           "library_cold_ms": None if library is None else _time_cold_ms(library),
            "device_launches_per_call": per_call, "kernel_device_ms": device_ms,
            # the library call's own device time, profiled as the kernel's
            "library_device_ms": (None if library is None
                                  else profile_calls(library)[1])}
     lib = ("none" if library is None else
-           f"{res['library_ms']:.4f} ms (device {res['library_device_ms']:.4f} ms)")
-    print(f"{label}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-          f"library {lib}, bound {bound_ms:.4f} ms ({bound_by}) "
-          f"(median, CUDA events); {per_call:g} device launch a call, "
-          f"{device_ms:.4f} ms of device time (profiler)")
+           f"{res['library_ms']:.4f} ms (device {res['library_device_ms']:.4f} "
+           f"ms, cold {res['library_cold_ms']:.4f} ms)")
+    print(f"{label}: kernel {res['ms']:.4f} ms (cold {res['cold_ms']:.4f} ms), "
+          f"plain {res['plain_ms']:.4f} ms, library {lib}, bound "
+          f"{bound_ms:.4f} ms ({bound_by}) (median, CUDA events); {per_call:g} "
+          f"device launch a call, {device_ms:.4f} ms of device time (profiler)")
     return res
 
 
@@ -597,6 +677,94 @@ def splat_case(label, vic, uic, z, ok, veps, h, w, depth_max) -> dict:
         19 * nvalid + 16 * n * h * w)
 
 
+def zbuf_scatter_case(label, flat, zz, h, w, fill) -> dict:
+    n, q = flat.shape
+    flat64 = flat.long()
+    image = torch.full((n, h * w), fill, device=flat.device)
+    # bytes: each point's pixel index and depth (8 B), the image written
+    # once (4 B a pixel); operations: a band test and a min a point, the
+    # fill of each pixel
+    return _case(
+        label, "zbuf_scatter_min",
+        # compared as bits, so that -0.0 and +0.0 differ
+        lambda: (zbuf_scatter.zbuf_scatter_min(flat, zz, h, w, fill)
+                 .view(torch.int32),),
+        lambda: (zbuf_scatter.zbuf_scatter_min_ref(flat, zz, h, w, fill)
+                 .view(torch.int32),),
+        # library: one scatter_reduce_ (amin) into a filled image, the int64
+        # indices precomputed (excludes both; a min is idempotent, so the
+        # image is not refilled)
+        lambda: image.scatter_reduce_(1, flat64, zz, reduce="amin"),
+        8 * n * q + 4 * n * h * w, 2 * n * q + n * h * w)
+
+
+def exact_zbuf_inputs(vic, uic, z, ok, w, depth_max):
+    """What zbuf_scatter_vis_px hands the scatter-min: each point's pixel
+    in its env's image and its depth, depth_max where it is not valid."""
+    return vic * w + uic, torch.where(ok, z, depth_max)
+
+
+def tool_zbuf_inputs(n: int = 256, q: int = 11264, cam: int = 128):
+    """tools/bench_scatter.py's z-buffer inputs at its defaults, from
+    numpy's RandomState(0) as there: (flat, zz) on the card."""
+    rng = np.random.RandomState(0)
+    vi, ui = (rng.randint(0, cam, (n, q)) for _ in range(2))
+    z = rng.uniform(1.0, 30.0, (n, q)).astype(np.float32)
+    ok = rng.rand(n, q) < 0.7
+    zz = np.where(ok, z, np.float32(bench_scatter.DMAX))
+    return (torch.as_tensor(vi * cam + ui, dtype=torch.int32, device="cuda"),
+            torch.as_tensor(zz, device="cuda"))
+
+
+def planted_zbuf_inputs(n: int, q: int, hw: int, depth_max: float):
+    """Random pixels and depths in [1, 30) at [n, q] on an hw x hw image,
+    25% at depth_max (not valid), with planted envs: env 0 piles its points
+    on four pixels, env 1 has no valid point, env 2's depths are in
+    [-30, 30) with a pixel that gets only -0.0 and one that gets only
+    +0.0."""
+    gen = torch.Generator(device="cuda").manual_seed(n + q + hw)
+    flat = torch.randint(0, hw * hw, (n, q), device="cuda", dtype=torch.int32,
+                         generator=gen)
+    zz = torch.rand(n, q, device="cuda", generator=gen) * 29.0 + 1.0
+    zz[torch.rand(n, q, device="cuda", generator=gen) < 0.25] = depth_max
+    flat[0] %= 4
+    zz[1] = depth_max
+    zz[2] = zz[2] * (60.0 / 29.0) - 32.0
+    k = min(q, 2)
+    flat[2, :k] = torch.tensor([7, 8], dtype=torch.int32)[:k]
+    zz[2][flat[2] == 7] = -0.0
+    zz[2][flat[2] == 8] = 0.0
+    return flat, zz
+
+
+# the scatter-min's edge cases: (envs, image side, points an env): one
+# point, no point, a ragged Q
+ZBUF_EDGES = [(spec.EVAL_NUM_ENVS, EVAL_HW, 1), (spec.EVAL_NUM_ENVS, EVAL_HW, 0),
+              (N_ENVS, HW, ROLLOUT_Q - 3), (1, EVAL_HW, 9215)]
+
+
+def zbuf_scatter_edge_case(n: int, hw: int, q: int) -> None:
+    """The wrapper bit-equal to zbuf_scatter_min_ref on planted inputs at
+    one edge case, with one launch a call (counted, and one device launch
+    under the profiler)."""
+    flat, zz = planted_zbuf_inputs(max(n, 3), q, hw, 50.0)
+    flat, zz = flat[:n].contiguous(), zz[:n].contiguous()
+    label = f"zbuf_scatter_min [{n}x{q}] -> [{n}x{hw}x{hw}]"
+    before = zbuf_scatter.zbuf_scatter_min.launches
+    got = zbuf_scatter.zbuf_scatter_min(flat, zz, hw, hw, 50.0)
+    if zbuf_scatter.zbuf_scatter_min.launches != before + 1:
+        raise AssertionError(f"{label}: counted "
+                             f"{zbuf_scatter.zbuf_scatter_min.launches - before} "
+                             "launches")
+    _equal(label, (got.view(torch.int32),), (zbuf_scatter.zbuf_scatter_min_ref(
+        flat, zz, hw, hw, 50.0).view(torch.int32),))
+    per_call, _, names = profile_calls(
+        lambda: zbuf_scatter.zbuf_scatter_min(flat, zz, hw, hw, 50.0), calls=3)
+    if per_call != 1 or not all("zbuf_scatter_min_kernel" in x for x in names):
+        raise AssertionError(f"{label}: {per_call} device launches a call "
+                             f"({sorted(names)})")
+
+
 def _step_poses(scenes, cam: config.CameraConfig):
     """Every scene seen from a pose of the discrete action grid drawn from
     a seeded numpy generator: (poses, r_c2w, t_c2w, intrinsics)."""
@@ -614,7 +782,7 @@ def _step_poses(scenes, cam: config.CameraConfig):
 
 
 def _step_inputs(scenes, cam: config.CameraConfig):
-    """What a splat env step hands the three kernels (_step_poses)."""
+    """What a splat env step hands its three kernels (_step_poses)."""
     n = scenes.num_scenes
     _, r, t, k = _step_poses(scenes, cam)
     vic, uic, z, ok = splat.project_px(scenes.surf_pts, scenes.surf_mask, k,
@@ -780,6 +948,23 @@ def phase_kernels(eval_scenes, rollout_scenes, dataset_scenes) -> dict:
             f"{path}: scatter_cells_any [{n}x{q}] -> [{n}x{G}^3]", *scatter_in)
         out["gather_image"][path] = gather_case(
             f"{path}: gather_image [{n}x{hw}x{hw}] x [{n}x{G ** 3}]", *gather_in)
+        vic, uic, z, ok, _ = splat_in
+        out["zbuf_scatter_min"][path] = zbuf_scatter_case(
+            f"{path}: zbuf_scatter_min [{n}x{q}] -> [{n}x{hw}x{hw}]",
+            *exact_zbuf_inputs(vic, uic, z, ok, hw, cam.depth_max), hw, hw,
+            cam.depth_max)
+    out["zbuf_scatter_min"]["tool"] = zbuf_scatter_case(
+        "tools/bench_scatter.py's defaults: zbuf_scatter_min [256x11264] -> "
+        "[256x128x128]", *tool_zbuf_inputs(), HW, HW, bench_scatter.DMAX)
+    out["zbuf_scatter_min"]["planted"] = zbuf_scatter_case(
+        f"zbuf_scatter_min [{N_ENVS}x{ROLLOUT_Q}] -> [{N_ENVS}x{HW}x{HW}] "
+        "(planted: a pile-up, an empty env, negative depths, signed zeros)",
+        *planted_zbuf_inputs(N_ENVS, ROLLOUT_Q, HW, 50.0), HW, HW, 50.0)
+    for case in ZBUF_EDGES:
+        zbuf_scatter_edge_case(*case)
+    print(f"zbuf_scatter_min: bit-equal to the plain version with one device "
+          f"launch a call at {len(ZBUF_EDGES)} edge cases (Q 1, 0, "
+          f"{ROLLOUT_Q - 3}, 9215 in one env)")
     planted_gather_case(G ** 3)
     paths = [gather_edge_case(*case) for case in GATHER_EDGES]
     print(f"gather_image: bit-equal to the plain version with one device "
@@ -807,7 +992,7 @@ def phase_golden() -> None:
         rew.append(out.reward)
         cov.append(out.coverage)
     torch.cuda.synchronize()
-    expect = {name: 1 + len(want["actions"]) for name in KERNELS}
+    expect = splat_expect(1 + len(want["actions"]))
     if launches() != expect:
         raise AssertionError(f"golden run launched {launches()}, expected {expect}")
     got = {"obs": obs, "rewards": rew, "coverage": cov}
@@ -893,13 +1078,24 @@ def make_path_scenes(cfg: config.EnvConfig, label: str):
 
 
 def phase_rollout(card: str, scenes) -> tuple[dict, dict]:
-    cfg = flagship_config()
     if scenes.surf_pts.shape[1] != ROLLOUT_Q:
         raise AssertionError(f"the flagship scenes' Q is "
                              f"{scenes.surf_pts.shape[1]}, not {ROLLOUT_Q}")
-    env = ReconEnv(cfg, scenes)
+    env = ReconEnv(flagship_config(), scenes)
     policy = ActorCriticPolicy(config.ModelConfig(),
                                torch.Generator(device="cuda").manual_seed(1))
+    return timed_rollout(card, "rollout", env, policy,
+                         splat_expect(1 + N_STEPS))
+
+
+def timed_rollout(card: str, label: str, env, policy,
+                  expect: dict) -> tuple[dict, dict]:
+    """Reset + collect(n_steps=N_STEPS) of N_ENVS envs after a warm-up,
+    timed; each kernel launched exactly `expect` times; the outputs finite
+    and in range.  Prints env-steps/s and peak memory, then profiles 8
+    more steps (device-busy share, top kernels).  Returns the launches and
+    each kernel's device ms a step."""
+    cfg = env.cfg
     # warm-up (allocator, cuDNN algorithm choice), outside the counted run
     state, out = env.reset(N_ENVS)
     rollout.collect(env, policy, state, out.obs,
@@ -918,12 +1114,11 @@ def phase_rollout(card: str, scenes) -> tuple[dict, dict]:
     t2 = time.perf_counter()
     counts = launches()
 
-    expect = {name: 1 + N_STEPS for name in KERNELS}
     if counts != expect:
-        raise AssertionError(f"rollout launched {counts}, expected {expect}")
+        raise AssertionError(f"{label} launched {counts}, expected {expect}")
     for name, x in (*batch._asdict().items(), *stats._asdict().items()):
         if x.is_floating_point() and not torch.isfinite(x).all():
-            raise AssertionError(f"non-finite {name}")
+            raise AssertionError(f"{label}: non-finite {name}")
     assert batch.obs.shape == (N_STEPS, N_ENVS, env.obs_dim)
     assert batch.obs.dtype == torch.float32
     assert ((stats.coverage >= 0) & (stats.coverage <= 1)).all()
@@ -936,13 +1131,13 @@ def phase_rollout(card: str, scenes) -> tuple[dict, dict]:
     assert ((tri == -1) | (tri == 0) | (tri == 1)).all()
 
     n_env_steps = N_ENVS * N_STEPS
-    print(f"rollout: reset {t1 - t0:.3f} s, collect {N_STEPS} steps x {N_ENVS} "
+    print(f"{label}: reset {t1 - t0:.3f} s, collect {N_STEPS} steps x {N_ENVS} "
           f"envs in {t2 - t1:.3f} s = {n_env_steps / (t2 - t1):.1f} env-steps/s "
           f"[{card}]; mean coverage at the last step "
           f"{float(stats.coverage[-1].mean()):.4f}, "
           f"{int(stats.num_dones.sum())} episodes ended, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    device_us = profile("rollout, 8 collect steps", lambda: rollout.collect(
+    device_us = profile(f"{label}, 8 collect steps", lambda: rollout.collect(
         env, policy, state, obs, torch.Generator(device="cuda").manual_seed(4),
         8, GAMMA), (t2 - t1) * 8 / N_STEPS)
     return counts, _device_ms_per_call(device_us["kernels"], 8)
@@ -994,7 +1189,7 @@ def phase_eval(card: str, scenes) -> tuple[dict, dict]:
     run_eval(cfg, scenes, policy)                  # warm-up, not counted
     res, counts, secs = run_eval(cfg, scenes, policy)
     # init-view cache, reset, and one launch per step
-    expect = {name: 2 + max_len for name in KERNELS}
+    expect = splat_expect(2 + max_len)
     if counts != expect:
         raise AssertionError(f"eval launched {counts}, expected {expect}")
     check_eval(res, max_len)
@@ -1010,7 +1205,7 @@ def phase_eval(card: str, scenes) -> tuple[dict, dict]:
 
     # without the init-view cache: the same kernels, once per step
     mxu, mxu_counts, mxu_secs = run_eval(eval_config("mxu"), scenes, policy)
-    expect = {name: steps for name in KERNELS}
+    expect = splat_expect(steps)
     if mxu_counts != expect:
         raise AssertionError(f"mxu eval launched {mxu_counts}, expected {expect}")
     for name in ("per_env_coverage", "per_env_auc", "mean_reward",
@@ -1423,8 +1618,7 @@ def phase_train(card: str, scenes, eval_scenes, log_dir: str) -> dict:
         # setup reset, 128 steps an iteration, one eval (reset + 30 steps;
         # zbuf_impl=mxu builds no init-view cache)
         n_eval = 1 + runner.eval_env.cfg.max_episode_length
-        expect = {name: 1 + TRAIN_ITERS * cfg.ppo.n_steps + n_eval
-                  for name in KERNELS}
+        expect = splat_expect(1 + TRAIN_ITERS * cfg.ppo.n_steps + n_eval)
         if counts != expect:
             raise AssertionError(f"train launched {counts}, expected {expect}")
         logged = read_logged(log_dir)
@@ -1654,7 +1848,7 @@ def phase_report(card: str, run_dir: str) -> dict:
     # reset and one launch a step
     per_family = (1 + env_cfg.max_episode_length
                   + (env_cfg.renderer.zbuf_impl == "pallas"))
-    expect = {name: len(fams) * per_family for name in KERNELS}
+    expect = splat_expect(len(fams) * per_family)
     if counts != expect:
         raise AssertionError(f"report launched {counts}, expected {expect}")
     with open(REFERENCE_REPORT) as f:
@@ -1750,9 +1944,10 @@ def dda_config(carve_mode: str, mode: str = "dda") -> config.EnvConfig:
 def dda_expect(carve_mode: str) -> dict:
     """Each kernel's launches a step of the DDA, replay and callback paths:
     the hit scatter once; the gather of the depth and of the hit mask with
-    the z-test carve, none with Bresenham's; no splat."""
+    the z-test carve, none with Bresenham's; no splat and no scatter-min
+    z-buffer."""
     return {"gather_image": 2 if carve_mode == "ztest" else 0,
-            "scatter_cells_any": 1, "zbuf_visible": 0}
+            "scatter_cells_any": 1, "zbuf_visible": 0, "zbuf_scatter_min": 0}
 
 
 def _step_counted(env, state, actions, expect: dict, label: str):
@@ -2002,10 +2197,10 @@ def phase_convert(root: str) -> dict:
     return dirs
 
 
-def phase_dataset(card: str, dirs: dict, root: str) -> dict:
-    """Training on the converted scenes with the held-out directory as the
-    eval dataset, then post_run's held-out family; returns each kernel's
-    launches by run."""
+def flagship_sets(*extra: str) -> list:
+    """The train CLIs' --set arguments of the flagship recipe
+    (reports/r5_refbudget128/config.json) but its log directory and
+    experiment name, then `extra`."""
     with open(FLAGSHIP) as f:
         raw = json.load(f)
 
@@ -2017,14 +2212,21 @@ def phase_dataset(card: str, dirs: dict, root: str) -> dict:
                                         "runner.experiment_name"):
                 yield f"{prefix}{k}={v}"
 
+    return [arg for leaf in (*leaves(raw, ""), *extra)
+            for arg in ("--set", leaf)]
+
+
+def phase_dataset(card: str, dirs: dict, root: str) -> dict:
+    """Training on the converted scenes with the held-out directory as the
+    eval dataset, then post_run's held-out family; returns each kernel's
+    launches by run."""
     log_dir = os.path.join(root, "runs")
     argv = ["--device", "cuda", "--log_dir", log_dir, "--exp_name", "dataset",
-            "--eval_dataset", dirs["held_out"]]
-    for leaf in (*leaves(raw, ""), f"env.scene.dataset={dirs['train']}",
-                 f"ppo.total_iters={DATASET_ITERS}",
-                 f"runner.eval_freq={DATASET_ITERS}",
-                 f"runner.save_freq={DATASET_ITERS}"):
-        argv += ["--set", leaf]
+            "--eval_dataset", dirs["held_out"], *flagship_sets(
+                f"env.scene.dataset={dirs['train']}",
+                f"ppo.total_iters={DATASET_ITERS}",
+                f"runner.eval_freq={DATASET_ITERS}",
+                f"runner.save_freq={DATASET_ITERS}")]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2043,8 +2245,8 @@ def phase_dataset(card: str, dirs: dict, root: str) -> dict:
                              f"{recorded.get('eval_dataset')!r}")
     # setup reset, 128 steps an iteration, one eval (reset + 30 steps)
     n_steps = recorded["ppo"]["n_steps"]
-    expect = {name: 1 + DATASET_ITERS * n_steps + 1 + spec.MAX_EPISODE_LENGTH_EVAL
-              for name in KERNELS}
+    expect = splat_expect(1 + DATASET_ITERS * n_steps + 1
+                          + spec.MAX_EPISODE_LENGTH_EVAL)
     if train_counts != expect:
         raise AssertionError(f"dataset training launched {train_counts}, "
                              f"expected {expect}")
@@ -2073,7 +2275,7 @@ def phase_dataset(card: str, dirs: dict, root: str) -> dict:
                             "held_out_houses", "--no-artifacts"])
     t_report = time.perf_counter() - t0
     report_counts = launches()
-    expect = {name: 1 + spec.MAX_EPISODE_LENGTH_EVAL for name in KERNELS}
+    expect = splat_expect(1 + spec.MAX_EPISODE_LENGTH_EVAL)
     if report_counts != expect:
         raise AssertionError(f"dataset post_run launched {report_counts}, "
                              f"expected {expect}")
@@ -2652,7 +2854,7 @@ def phase_terrain(card: str) -> dict:
                                torch.Generator(device="cuda").manual_seed(1))
     policy.eval()
     actions, _, keep, _, counts = drive(card, "terrain", cfg, scenes, policy,
-                                        {name: 1 for name in KERNELS},
+                                        splat_expect(1),
                                         TERRAIN_STEPS)
     gray = check_on_cpu("terrain", cfg, scenes, actions, keep)
     print(f"terrain: envs 0-{CPU_ENVS - 1} equal the port on the CPU over "
@@ -3260,7 +3462,7 @@ def phase_mesh(card: str, scenes) -> dict:
         runner, got, secs = _mesh_iteration(cfg1, scenes)
         counts = launches()
         assert runner.mesh is not None and runner.mesh.env_width == 1
-        expect = {name: 1 + MESH_ITERS * cfg.ppo.n_steps for name in KERNELS}
+        expect = splat_expect(1 + MESH_ITERS * cfg.ppo.n_steps)
         if counts != expect:
             raise AssertionError(f"mesh launched {counts}, expected {expect}")
         for k in _METRIC_KEYS[:9]:
@@ -3316,6 +3518,173 @@ def phase_mesh(card: str, scenes) -> dict:
           "DTensor's functional collectives, which crash over gloo on CUDA "
           f"tensors) [{card}]")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the exact z-buffer path (renderer.zbuf_impl=scatter)
+
+
+def _exact_zbuf_rollout(card: str, scenes) -> tuple[dict, dict]:
+    """(a): reset + EXACT_CPU_STEPS steps driven step by step with exact
+    launches and envs 0-1 held to the CPU, then the timed rollout."""
+    cfg = flagship_config()
+    cfg = dataclasses.replace(cfg, renderer=dataclasses.replace(
+        cfg.renderer, zbuf_impl="scatter"))
+    policy = ActorCriticPolicy(config.ModelConfig(),
+                               torch.Generator(device="cuda").manual_seed(1))
+    policy.eval()
+    counts = {}
+    actions, _, keep, env, counts["exact_zbuf_steps"] = drive(
+        card, "exact zbuf", cfg, scenes, policy, exact_zbuf_expect(1),
+        EXACT_CPU_STEPS)
+    t0 = time.perf_counter()
+    gray = check_on_cpu("exact zbuf", cfg, scenes, actions, keep)
+    print(f"exact zbuf: envs 0-{CPU_ENVS - 1} equal the port on the CPU over "
+          f"reset + {EXACT_CPU_STEPS} steps, every output and state field bit "
+          f"for bit but the grayscale frames "
+          f"({'also bit for bit' if gray == 0 else f'max diff {gray:.3g}'}) "
+          f"({time.perf_counter() - t0:.1f} s)")
+    counts["exact_zbuf_rollout"], device_ms = timed_rollout(
+        card, "exact zbuf rollout", env, policy,
+        exact_zbuf_expect(1 + N_STEPS))
+    return counts, device_ms
+
+
+def _exact_zbuf_eval(card: str, scenes) -> tuple[dict, dict]:
+    """(b): the 400x400 held-out eval (no init-view cache under scatter)."""
+    cfg = eval_config("scatter")
+    max_len = cfg.max_episode_length
+    policy = ActorCriticPolicy(config.ModelConfig(),
+                               torch.Generator(device="cuda").manual_seed(1))
+    run_eval(cfg, scenes, policy)                  # warm-up, not counted
+    res, counts, secs = run_eval(cfg, scenes, policy)
+    expect = exact_zbuf_expect(1 + max_len)
+    if counts != expect:
+        raise AssertionError(f"exact zbuf eval launched {counts}, expected "
+                             f"{expect}")
+    check_eval(res, max_len)
+    print(f"exact zbuf eval: {cfg.num_envs} envs x (reset + {max_len} steps) "
+          f"at {EVAL_HW}x{EVAL_HW} in {secs:.3f} s = "
+          f"{cfg.num_envs * (1 + max_len) / secs:.1f} env-steps/s [{card}]; "
+          f"mean reward {res.mean_reward:.4f}, AUC {res.mean_auc:.4f}, final "
+          f"coverage {res.mean_final_coverage:.4f}, init coverage "
+          f"{res.mean_init_coverage:.4f}")
+    env = ReconEnv(cfg, scenes)
+    device_us = profile(
+        "exact zbuf eval, one evaluate call",
+        lambda: evaluation.evaluate(env, policy, compute_accuracy=False), secs)
+    return counts, _device_ms_per_call(device_us["kernels"], 1 + max_len)
+
+
+def _exact_zbuf_training(card: str, root: str) -> dict:
+    """(c): train_eval_gennbv.main on the flagship recipe under
+    zbuf_impl=scatter for EXACT_ITERS iterations, an eval at 400x400 at the
+    last."""
+    log_dir = os.path.join(root, "exact_zbuf_runs")
+    argv = ["--device", "cuda", "--log_dir", log_dir, "--exp_name",
+            "exact_zbuf", *flagship_sets(
+                "env.renderer.zbuf_impl=scatter",
+                f"ppo.total_iters={EXACT_ITERS}",
+                f"runner.eval_freq={EXACT_ITERS}",
+                f"runner.save_freq={EXACT_ITERS}")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    train_eval_gennbv.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    (run,) = os.listdir(log_dir)
+    run_dir = os.path.join(log_dir, run)
+    with open(os.path.join(run_dir, "config.json")) as f:
+        recorded = json.load(f)
+    if (recorded["env"]["renderer"]["zbuf_impl"],
+            recorded["runner"]["eval_camera"]) != ("scatter", EVAL_HW):
+        raise AssertionError(f"exact zbuf training ran {recorded['env']}")
+    # setup reset, 128 steps an iteration, one eval (reset + 30 steps)
+    expect = exact_zbuf_expect(1 + EXACT_ITERS * recorded["ppo"]["n_steps"]
+                               + 1 + spec.MAX_EPISODE_LENGTH_EVAL)
+    if counts != expect:
+        raise AssertionError(f"exact zbuf training launched {counts}, "
+                             f"expected {expect}")
+    logged = read_logged(run_dir)
+    assert [rec["step"] for rec in logged] == list(range(1, EXACT_ITERS + 1))
+    for rec in logged:
+        for k in _METRIC_KEYS:
+            if not math.isfinite(rec[k]):
+                raise AssertionError(f"exact zbuf training: non-finite {k}")
+        print(f"exact zbuf training: iteration {rec['step']}"
+              f"{' (warm-up)' if rec['step'] == 1 else ''}: "
+              f"{rec['time/iter_seconds']:.3f} s = rollout "
+              f"{rec['time/rollout']:.3f} + update {rec['time/update']:.3f} s; "
+              f"{rec['time/fps']:.1f} env-steps/s [{card}]")
+    cov = logged[-1]["eval/final_coverage"]
+    if not 0 < cov <= 1:
+        raise AssertionError(f"exact zbuf training: eval coverage {cov}")
+    print(f"exact zbuf training: train_eval_gennbv, {EXACT_ITERS} flagship "
+          f"iterations and a {EVAL_HW}x{EVAL_HW} eval (final coverage "
+          f"{cov:.4f}) in {secs:.3f} s; peak memory {peak / 2 ** 30:.2f} GiB "
+          f"[{card}]")
+    return counts
+
+
+# each form's line of gennbv_tpu_torch/tools/bench_scatter.py
+BENCH_SCATTER_FORMS = (
+    "zbuf: library scatter-min", "zbuf: count-matmul", "zbuf: hand kernel",
+    "hits: library scatter-max", "hits: one-hot matmul",
+    "carve: library gather", "carve: one-hot matmul gather",
+    "vis: library gather", "vis: flat take")
+
+
+def _exact_zbuf_tool(card: str) -> None:
+    """(d): python -m gennbv_tpu_torch.tools.bench_scatter at its defaults
+    in a process of its own: every form's line, and the kernel bit-equal
+    to the library scatter-min."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m",
+                          "gennbv_tpu_torch.tools.bench_scatter"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    for line in res.stdout.splitlines():
+        print(f"  bench_scatter| {line}")
+    if res.returncode != 0:
+        raise AssertionError(f"bench_scatter exited {res.returncode}: "
+                             f"{res.stderr[-2000:]}")
+    missing = [f for f in BENCH_SCATTER_FORMS
+               if not re.search(rf"^{re.escape(f)}.* ms$", res.stdout, re.M)]
+    if missing or "bit-equal True" not in res.stdout:
+        raise AssertionError(f"bench_scatter: no line for {missing} or the "
+                             "kernel is not exact")
+    print(f"exact zbuf: tools/bench_scatter.py's port ran at its defaults in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def phase_exact_zbuf(card: str, scenes, eval_scenes,
+                     root: str) -> tuple[dict, dict]:
+    """Phase 15's parts in turn, each timed; returns each kernel's
+    launches by run and the kernels' device ms a step of the rollout and
+    of the eval."""
+    secs, counts, device_ms = {}, {}, {}
+    t0 = time.perf_counter()
+    got, device_ms["rollout"] = _exact_zbuf_rollout(card, scenes)
+    counts.update(got)
+    secs["rollout"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts["exact_zbuf_eval"], device_ms["eval"] = _exact_zbuf_eval(
+        card, eval_scenes)
+    secs["eval"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts["exact_zbuf_train"] = _exact_zbuf_training(card, root)
+    secs["training"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _exact_zbuf_tool(card)
+    secs["tool"] = time.perf_counter() - t0
+    print(f"phase 15: {sum(secs.values()):.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
+          + f") [{card}]")
+    return counts, device_ms
 
 
 def phase_cache_pairs(card: str, scenes, pairs: int) -> None:
@@ -3382,13 +3751,20 @@ def main() -> None:
         t0 = time.perf_counter()
         mesh_counts = phase_mesh(card, rollout_scenes)
         print(f"phase 14: {time.perf_counter() - t0:.1f} s [{card}]")
+        exact_counts, exact_ms = phase_exact_zbuf(card, rollout_scenes,
+                                                  eval_scenes, data_root)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
         shutil.rmtree(data_root, ignore_errors=True)
     by_path = {"rollout": rollout_counts, "eval": eval_counts,
                "train": train_counts, "report": report_counts, **dda_counts,
                **dataset_counts, "rsl": rsl_counts, **p12_counts,
-               **p13_counts, "mesh": mesh_counts}
+               **p13_counts, "mesh": mesh_counts, **exact_counts}
+    # each kernel's device time a call, profiled on the path that runs it
+    for name in KERNELS:
+        if not eval_counts[name]:
+            eval_ms[name] = exact_ms["eval"][name]
+            rollout_ms[name] = exact_ms["rollout"][name]
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         kernels.append({

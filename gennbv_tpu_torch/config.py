@@ -52,7 +52,8 @@ class RendererConfig:
     fused CUDA kernel or its plain version (ops/splat.py) under ``"mxu"``
     and ``"pallas"`` alike.  ``zbuf_impl="scatter"`` is the JAX package's
     exact scatter-min of unquantized depths (ops/splat.py,
-    ``zbuf_scatter_vis_px``).  ``zbuf_impl="pallas"``, survivor compaction
+    ``zbuf_scatter_vis_px``): the scatter-min kernel of
+    ops/zbuf_scatter.py on the card, its plain version on the CPU.  ``zbuf_impl="pallas"``, survivor compaction
     (``compact_cap_frac``) and row banding (``band_split``) turn on the
     batched splat with the per-scene init-view cache (env/recon_env.py),
     as they do in the JAX package, whose compaction and banding are

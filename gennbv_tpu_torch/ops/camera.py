@@ -89,3 +89,26 @@ def pixel_index(coord: torch.Tensor, size: int) -> torch.Tensor:
     so the cast stays in range; in-image tests and clipping see the same
     answer either way."""
     return torch.floor(coord).clamp_(-1, size).to(torch.int32)
+
+
+def polar_to_cartesian(rtp: torch.Tensor) -> torch.Tensor:
+    """(r, theta, phi) [..., 3] -> (x, y, z) [..., 3]: the reference's
+    position_use_polar_coordinates decode (env_train_base.py:688-693).
+    theta is the azimuth in the xy plane, phi the elevation."""
+    r, theta, phi = rtp[..., 0], rtp[..., 1], rtp[..., 2]
+    cp = torch.cos(phi)
+    return torch.stack([r * cp * torch.cos(theta), r * cp * torch.sin(theta),
+                        r * torch.sin(phi)], dim=-1)
+
+
+def direction_to_rpy(d: torch.Tensor) -> torch.Tensor:
+    """Direction vector (dx, dy, dz) [..., 3] -> (roll=0, pitch, yaw)
+    [..., 3]: the reference's direction_use_vector decode
+    (env_train_base.py:696-706).  pitch = -asin(dz/|d|); yaw in [0, 2pi)
+    with the reference's dy-sign branch (dy <= 0 gives 2pi - yaw)."""
+    length = torch.sqrt((d * d).sum(-1, keepdim=True))
+    phi = -torch.asin(d[..., 2:3] / length)
+    proj = torch.cos(phi) * length
+    base = torch.acos(torch.clamp(d[..., 0:1] / proj, -1.0, 1.0))
+    theta = torch.where(d[..., 1:2] > 0, base, 2.0 * math.pi - base)
+    return torch.cat([torch.zeros_like(phi), phi, theta], dim=-1)

@@ -25,17 +25,19 @@ Both give the same bits.
 
 ``zbuf_impl="scatter"`` is another function: the JAX package's exact
 scatter-min of the unquantized depths (``_zbuf_px``'s scatter branch, plain
-XLA there), pooled alike, with the visibility slack not widened.  The port
-runs it as ``zbuf_scatter_vis_px`` on either device: a PyTorch
-``scatter_reduce_`` and the pool, then the visibility read through
-``gather.gather_image`` (its CUDA kernel on the card).
+XLA there; ``tools/bench_scatter.py`` holds a Pallas form of it), pooled
+alike, with the visibility slack not widened.  The port runs it as
+``zbuf_scatter_vis_px``: the z-buffer from
+``zbuf_scatter.zbuf_scatter_min`` (its CUDA kernel on the card, its plain
+version on the CPU), the pool, then the visibility read through
+``gather.gather_image`` (likewise).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from gennbv_tpu_torch.ops import fp32, gather
+from gennbv_tpu_torch.ops import fp32, gather, zbuf_scatter
 from gennbv_tpu_torch.ops.camera import pixel_index
 
 LEVELS = 10                      # levels per depth digit (mxu.scatter_min_image)
@@ -138,16 +140,14 @@ def zbuf_scatter_vis_px(vic, uic, z, ok, height: int, width: int,
     """``zbuf_impl="scatter"``: pooled z-buffer [N, H*W] of the exact
     per-pixel minimum depth of the valid points (depth_max where none),
     and visibility [N, Q] with slack voxel_eps [N], the pooled depth read
-    rounded to bf16 by ``gather.gather_image``."""
+    rounded to bf16 by ``gather.gather_image``.  The unpooled z-buffer is
+    ``zbuf_scatter.zbuf_scatter_min`` of each point's pixel in its own
+    env's image and its depth, depth_max where it is not valid."""
     n = z.shape[0]
-    env = torch.arange(n, device=z.device)[:, None] * (height * width)
-    pix = env + vic.long() * width + uic.long()
-    zbuf0 = torch.full((n * height * width,), depth_max, dtype=torch.float32,
-                       device=z.device)
-    zbuf0.scatter_reduce_(0, pix.reshape(-1),
-                          torch.where(ok, z, depth_max).reshape(-1),
-                          reduce="amin")
-    zbuf2d = min_pool(zbuf0.reshape(n, height, width), footprint, depth_max)
+    zbuf0 = zbuf_scatter.zbuf_scatter_min(vic * width + uic,
+                                          torch.where(ok, z, depth_max),
+                                          height, width, depth_max)
+    zbuf2d = min_pool(zbuf0, footprint, depth_max)
     z_at_px = gather.gather_image(zbuf2d, vic, uic)
     visible = ok & (z <= z_at_px + voxel_eps[:, None])
     return zbuf2d.reshape(n, height * width), visible

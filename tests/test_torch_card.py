@@ -1,6 +1,6 @@
 """Tests of the port that need a CUDA card: each kernel against its plain
 version, the mapping golden, a rollout and an eval with the kernels in
-use, a PPO update against the same update on the CPU, the train CLI, and
+use, the exact z-buffer env against the CPU, a PPO update against the same update on the CPU, the train CLI, and
 two trainings from one seed; the drone, the legged robots (plane and
 rough terrain) and the recurrent actor-critic against the CPU, and two
 recurrent trainings from one seed; SAC, TD3 and DQN updates and a HER
@@ -196,14 +196,83 @@ def test_fused_splat_kernel_without_points_or_envs(cuda, n, q):
     assert (zbuf == 50.0).all()
 
 
+@pytest.mark.parametrize("h,w,q", [(400, 400, 9216), (128, 128, 11264),
+                                   (401, 300, 5000), (37, 53, 700),
+                                   (16, 16, 40), (90, 20000, 3000)])
+def test_zbuf_scatter_kernel_equals_plain(cuda, h, w, q):
+    """Points on the first and last row of every CTA's band (env 0), a
+    pile-up of points on one pixel at many depths (env 1), no valid point
+    (env 2), negative depths with pixels that get only -0.0 or only +0.0
+    (env 3); 401 rows leave a short last band, a 20,000-pixel row takes
+    one band a row."""
+    from gennbv_tpu_torch.ops import zbuf_scatter
+    gen = torch.Generator(device="cuda").manual_seed(h + w + q)
+    n = 4
+    flat = torch.randint(0, h * w, (n, q), device="cuda", dtype=torch.int32,
+                         generator=gen)
+    zz = torch.rand(n, q, device="cuda", generator=gen) * 29.0 + 1.0
+    zz[torch.rand(n, q, device="cuda", generator=gen) < 0.3] = 50.0
+    rows = zbuf_scatter.band_rows(h, w)
+    edges = torch.tensor(sorted({r for b in range(0, h, rows)
+                                 for r in (b, min(h, b + rows) - 1)}),
+                         dtype=torch.int32, device="cuda")
+    flat[0] = edges[torch.arange(q, device="cuda") % len(edges)] * w \
+        + flat[0] % w
+    flat[1, : q // 2] = (h // 2) * w + w // 2
+    zz[2] = 50.0
+    zz[3] = zz[3] * 2.0 - 31.0
+    flat[3, :2] = torch.tensor([3, 4], dtype=torch.int32)
+    zz[3][flat[3] == 3] = -0.0
+    zz[3][flat[3] == 4] = 0.0
+    before = zbuf_scatter.zbuf_scatter_min.launches
+    got = zbuf_scatter.zbuf_scatter_min(flat, zz, h, w, 50.0)
+    torch.cuda.synchronize()
+    assert zbuf_scatter.zbuf_scatter_min.launches == before + 1
+    want = zbuf_scatter.zbuf_scatter_min_ref(flat, zz, h, w, 50.0)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (got[2] == 50.0).all() and (got[1] < 50.0).sum() <= q - q // 2 + 1
+    assert got[3].min() < 0 and torch.signbit(got[3].reshape(-1)[3])
+
+
+@pytest.mark.parametrize("n,q", [(2, 0), (0, 700), (1, 1)])
+def test_zbuf_scatter_kernel_without_points_or_envs(cuda, n, q):
+    """q = 0: the fill everywhere (the kernel writes every pixel of an
+    image it was not given filled); n = 0: an empty output and no launch;
+    q = 1: one pixel below the fill."""
+    from gennbv_tpu_torch.ops import zbuf_scatter
+    torch.full((max(n, 1), 400, 400), 7.0, device="cuda")   # garbage to reuse
+    flat = torch.full((n, q), 400 * 200 + 17, dtype=torch.int32, device="cuda")
+    zz = torch.full((n, q), 3.5, device="cuda")
+    before = zbuf_scatter.zbuf_scatter_min.launches
+    got = zbuf_scatter.zbuf_scatter_min(flat, zz, 400, 400, 50.0)
+    torch.cuda.synchronize()
+    assert zbuf_scatter.zbuf_scatter_min.launches == before + (n > 0)
+    assert got.shape == (n, 400, 400)
+    assert torch.equal(got, zbuf_scatter.zbuf_scatter_min_ref(flat, zz, 400,
+                                                              400, 50.0))
+    assert (got < 50.0).sum() == n * min(q, 1)
+
+
+def test_zbuf_scatter_kernel_at_the_tools_defaults(cuda):
+    """tools/bench_scatter.py's inputs (256 x 11264 at 128x128) and the
+    planted rollout case, bit-equal with one device launch a call."""
+    import chip_smoke
+    assert chip_smoke.zbuf_scatter_case(
+        "tool", *chip_smoke.tool_zbuf_inputs(), 128, 128, 50.0)[
+            "max_abs_err"] == 0.0
+    for case in chip_smoke.ZBUF_EDGES:
+        chip_smoke.zbuf_scatter_edge_case(*case)
+
+
 def test_golden_on_card(cuda):
     import chip_smoke
     chip_smoke.phase_golden()
 
 
 def test_rollout_launches_the_kernel_twice_per_step(cuda):
-    """Each of the three kernels once per env step: the fused splat, the
-    hit scatter and the carve gather."""
+    """Each of the splat path's three kernels once per env step: the fused
+    splat, the hit scatter and the carve gather; the exact scatter-min
+    never."""
     from gennbv_tpu_torch import config
     from gennbv_tpu_torch.algo import rollout
     from gennbv_tpu_torch.env import ReconEnv, make_scenes
@@ -220,7 +289,7 @@ def test_rollout_launches_the_kernel_twice_per_step(cuda):
     state, out = env.reset(8)
     _, obs, batch, stats = rollout.collect(env, policy, state, out.obs, gen, 4, 0.99)
     torch.cuda.synchronize()
-    assert chip_smoke.launches() == {name: 1 + 4 for name in chip_smoke.KERNELS}
+    assert chip_smoke.launches() == chip_smoke.splat_expect(1 + 4)
     assert obs.is_cuda and torch.isfinite(batch.values).all()
     assert ((stats.coverage >= 0) & (stats.coverage <= 1)).all()
 
@@ -248,10 +317,10 @@ def test_eval_launches_each_kernel_per_step(cuda):
     policy = ActorCriticPolicy(config.ModelConfig(),
                                torch.Generator(device="cuda").manual_seed(1))
     res, counts, _ = chip_smoke.run_eval(cfg, scenes, policy)
-    assert counts == {name: 2 + 6 for name in chip_smoke.KERNELS}
+    assert counts == chip_smoke.splat_expect(2 + 6)
     chip_smoke.check_eval(res, 6)
     mxu, counts, _ = chip_smoke.run_eval(small("mxu"), scenes, policy)
-    assert counts == {name: 1 + 6 for name in chip_smoke.KERNELS}
+    assert counts == chip_smoke.splat_expect(1 + 6)
     np.testing.assert_array_equal(res.per_env_coverage, mxu.per_env_coverage)
     np.testing.assert_array_equal(res.per_env_auc, mxu.per_env_auc)
 
@@ -422,7 +491,7 @@ def test_train_cli_on_card(cuda, tmp_path, capsys):
         "--set", "env.renderer.resolution=16", "--set", "env.scene.num_scenes=8",
         "--set", "ppo.n_steps=8", "--set", "ppo.batch_size=16"])
     torch.cuda.synchronize()
-    assert chip_smoke.launches() == {name: 1 + 2 * 8 for name in chip_smoke.KERNELS}
+    assert chip_smoke.launches() == chip_smoke.splat_expect(1 + 2 * 8)
     assert "final:" in capsys.readouterr().out
     (run,) = tmp_path.iterdir()
     logged = [json.loads(line) for line in open(run / "metrics.jsonl")]
@@ -488,7 +557,7 @@ def test_dda_step_kernels_equal_plain(cuda):
     free = gather.gather_image(fg, vi, ui)
     torch.cuda.synchronize()
     assert chip_smoke.launches() == {"gather_image": 1, "scatter_cells_any": 1,
-                                     "zbuf_visible": 0}
+                                     "zbuf_visible": 0, "zbuf_scatter_min": 0}
     assert torch.equal(hits, scatter.scatter_cells_any_ref(idx, valid, 20))
     assert torch.equal(free, gather.gather_image_ref(fg, vi, ui))
     assert hits.sum() > 0 and free.sum() > 0
@@ -515,6 +584,43 @@ def test_dda_env_on_card_matches_cpu(cuda, carve_mode):
     cpu = ReconEnv(dataclasses.replace(cfg, num_envs=2),
                    chip_smoke._cpu_scenes(scenes))
     expect = chip_smoke.dda_expect(carve_mode)
+    rng = np.random.default_rng(0)
+    acts = torch.from_numpy(np.stack([rng.integers(0, k, (7, 8))
+                                      for k in spec.NVEC], -1).astype(np.int32))
+    chip_smoke.reset_launches()
+    card = env.reset(8)
+    assert chip_smoke.launches() == expect
+    host = cpu.reset(2)
+    for t in range(8):
+        first = tuple(type(x)(*(y[:2] for y in x)) for x in card)
+        chip_smoke._same_step(f"step {t}", first, host, 1e-4)
+        if t == 7:
+            break
+        card = chip_smoke._step_counted(env, card[0], acts[t].cuda(), expect,
+                                        f"step {t}")
+        host = cpu.step(host[0], acts[t, :2])
+    assert card[1].coverage.max() > 0
+
+
+def test_exact_zbuf_env_on_card_matches_cpu(cuda):
+    """renderer.zbuf_impl=scatter, 8 envs at 32^2, R=16, 6-step episodes:
+    each step launches the scatter-min once, the gather twice and the hit
+    scatter once, and envs 0-1 equal the same envs on the CPU over reset
+    and 7 steps: every field bit for bit, the grayscale frames to 1e-4."""
+    import chip_smoke
+    from gennbv_tpu_torch import config, spec
+    from gennbv_tpu_torch.env import ReconEnv, make_scenes
+
+    cfg = config.EnvConfig(
+        num_envs=8, max_episode_length=6,
+        camera=config.CameraConfig(height=32, width=32),
+        renderer=config.RendererConfig(resolution=16, zbuf_impl="scatter"),
+        scene=config.SceneConfig(num_scenes=4, seed=1))
+    scenes = make_scenes(cfg.scene, 16)
+    env = ReconEnv(cfg, scenes)
+    cpu = ReconEnv(dataclasses.replace(cfg, num_envs=2),
+                   chip_smoke._cpu_scenes(scenes))
+    expect = chip_smoke.exact_zbuf_expect(1)
     rng = np.random.default_rng(0)
     acts = torch.from_numpy(np.stack([rng.integers(0, k, (7, 8))
                                       for k in spec.NVEC], -1).astype(np.int32))

@@ -4,12 +4,14 @@ splat (``ops/fused_splat.py``) cuts the env's image into bands of rows,
 one a CTA of a thread-block cluster; the hit scatter (``ops/scatter.py``)
 holds the env's whole G^3 grid of flags in one CTA; the image gather
 (``ops/gather.py``) runs a 1-D grid of threads that take vectors of 4
-queries where the layout allows, and single queries where it does not."""
+queries where the layout allows, and single queries where it does not;
+the exact scatter-min z-buffer (``ops/zbuf_scatter.py``) cuts the env's
+image into bands of rows, one a CTA, with no halo between them."""
 import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 import torch
 
-from gennbv_tpu_torch.ops import _cuda, fused_splat, gather, scatter
+from gennbv_tpu_torch.ops import _cuda, fused_splat, gather, scatter, zbuf_scatter
 
 # (H, W, footprint): the eval's and the rollout's images, and the shapes of
 # the card tests in tests/test_torch_card.py
@@ -141,3 +143,52 @@ def test_gather_geometry_refuses_what_the_kernel_does_not_index(n, q, fits):
     else:
         with pytest.raises(ValueError, match="2\\^31"):
             gather.launch_geometry(n, q, 0, 0)
+
+
+# (H, W): the eval's and the rollout's images, the card tests' odd sizes,
+# and a single row and a single column
+ZBUF_SHAPES = [(400, 400), (128, 128), (16, 16), (37, 53), (401, 300),
+               (1, 1000), (3000, 1), (64, 48), (90, 20000)]
+
+
+@pytest.mark.parametrize("h,w", ZBUF_SHAPES)
+def test_zbuf_scatter_bands_cover_the_image_and_fit(h, w):
+    """Every row in exactly one band, in order, the last no taller than
+    the rest, each band's keys (4 B a pixel) in one CTA's
+    shared memory; in the memory that lets two CTAs share an SM wherever
+    one row fits there."""
+    rows = zbuf_scatter.band_rows(h, w)
+    ctas = zbuf_scatter.ctas_per_env(h, w)
+    bands = [range(b * rows, min(h, (b + 1) * rows)) for b in range(ctas)]
+    assert [r for b in bands for r in b] == list(range(h))
+    assert all(len(b) > 0 for b in bands)
+    assert all(len(b) == rows for b in bands[:-1]) and len(bands[-1]) <= rows
+    smem = zbuf_scatter.BYTES_PER_PIXEL * rows * w
+    assert zbuf_scatter.BYTES_PER_PIXEL == 4
+    assert smem <= _cuda.SHARED_PER_CTA == 232_448
+    if 4 * w <= _cuda.SHARED_TWO_PER_SM:
+        assert smem <= _cuda.SHARED_TWO_PER_SM
+        # the fewest bands that fit: one fewer would not
+        assert ctas == 1 or 4 * w * -(-h // (ctas - 1)) > _cuda.SHARED_TWO_PER_SM
+
+
+def test_zbuf_scatter_geometry_at_the_paths_shapes():
+    """128x128: the whole 64 KB image in one CTA an env; 400x400: the
+    640 KB image in 6 bands of 67 rows (the last 65), 107,200 B each, so
+    two CTAs share an SM."""
+    assert zbuf_scatter.ctas_per_env(128, 128) == 1
+    assert zbuf_scatter.band_rows(128, 128) == 128
+    assert zbuf_scatter.ctas_per_env(400, 400) == 6
+    assert zbuf_scatter.band_rows(400, 400) == 67
+    assert 4 * 67 * 400 == 107_200 <= _cuda.SHARED_TWO_PER_SM
+    assert 400 - 5 * 67 == 65
+
+
+def test_zbuf_scatter_geometry_refuses_what_no_cta_holds():
+    """A row of more than 58,112 pixels does not fit in one CTA; a row
+    of 40,000 does, alone in its band."""
+    assert zbuf_scatter.band_rows(5, 40_000) == 1
+    assert zbuf_scatter.band_rows(5, 58_112) == 1
+    assert 4 * 58_112 == _cuda.SHARED_PER_CTA
+    with pytest.raises(ValueError):
+        zbuf_scatter.band_rows(5, 58_113)

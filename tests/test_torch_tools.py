@@ -1,7 +1,8 @@
 """The port's last examples, plotter and tools on the CPU at tiny sizes:
 ``utils/episode_plotter.py`` against the JAX plotter, the two examples
 (``examples/03``'s output against the JAX example's), and ``tools/``
-smoke, profile_train, export_fps_evidence and rehearse_ingestion."""
+smoke, profile_train, export_fps_evidence, rehearse_ingestion and
+bench_scatter (its errors against the JAX tool's)."""
 import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import json
 import math
@@ -14,8 +15,8 @@ import numpy as np
 
 from gennbv_tpu.utils.episode_plotter import EpisodePlotter as JaxPlotter
 from gennbv_tpu_torch.examples import external_sim_bridge, train_nbv_policy
-from gennbv_tpu_torch.tools import (export_fps_evidence, profile_train,
-                                    rehearse_ingestion)
+from gennbv_tpu_torch.tools import (bench_scatter, export_fps_evidence,
+                                    profile_train, rehearse_ingestion)
 from gennbv_tpu_torch.utils.episode_plotter import EpisodePlotter
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -108,3 +109,26 @@ def test_rehearse_ingestion_smoke(tmp_path):
         out["converted"]["eval_final_coverage"], 4)
     assert os.path.exists(tmp_path / "report.json")
     assert np.isfinite(out["held_out_houses"]["mean_AUC"])
+
+
+def test_bench_scatter_tool_matches_the_jax_tool(tmp_path, capsys):
+    """The tool's port on the CPU at 4 envs x 64 points, 8x8: every form's
+    line, the kernel's plain version bit-equal to the library scatter-min,
+    and the same inputs as the JAX tool (tools/bench_scatter.py), whose
+    printed count-product and carve errors and hit exactness it repeats
+    digit for digit."""
+    res = subprocess.run(
+        [sys.executable, "tools/bench_scatter.py", "4", "64", "8"], cwd=REPO,
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, JAX_PLATFORMS="cpu",
+                 JAX_COMPILATION_CACHE_DIR=str(tmp_path / "jax_cache")))
+    assert res.returncode == 0, res.stderr[-2000:]
+    out = bench_scatter.main(["4", "64", "8", "--device", "cpu"])
+    printed = capsys.readouterr().out
+    assert out["device"] == "cpu" and out["kernel_bit_equal"]
+    assert out["kernel_max_abs_err"] == 0.0
+    assert out["hits_exact"] and out["vis_exact"]
+    assert len(out["ms"]) == 9 and all(v > 0 for v in out["ms"].values())
+    for line in ("count-matmul err:", "hits exactness:", "carve err"):
+        want = next(x for x in res.stdout.splitlines() if line in x)
+        assert want.strip() in printed, line

@@ -7,12 +7,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. a CUDA card must be present; print its name and power limit, the torch
    version and nvcc's;
 2. build the four kernels from gennbv_tpu_torch/csrc, one nvcc process per
-   source, all started together (each timed);
+   source, all started together (each timed), and print what ptxas says
+   of each kernel (registers, shared memory, spills);
 3. hold each kernel bit-equal to its plain PyTorch version at the shapes of
    the paths below and time both, with the bound of the card and one
    PyTorch library call where one computes the same function, warm
-   (back-to-back calls) and cold (one call after an L2 flush); check under
-   torch.profiler that each wrapper call is one device launch of its
+   (back-to-back calls) and cold (one call after an L2 flush that leaves
+   clean lines, and one after a flush that leaves dirty lines; a trivial
+   launch's cold time under each, measured once, is the floor); check
+   under torch.profiler that each wrapper call is one device launch of its
    kernel:
    - the 400x400 held-out eval (50 envs, the 50 eval scenes' surface
      capacity Q, 20^3 grid): the fused splat z-buffer + visibility, the hit
@@ -32,8 +35,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    arrays that are contiguous views off 16-byte alignment (the scalar
    path); the scatter-min once more on planted inputs (a pile-up on four
    pixels, an env with no valid point, negative depths, pixels that get
-   only -0.0 or only +0.0) and, without timing, at Q of 1, 0 and a
-   ragged Q;
+   only -0.0 or only +0.0, a pile-up on either side of a band edge) and,
+   without timing, at Q of 1, 0 and a ragged Q, at env counts that do
+   not divide over the card's CTAs (1, 133, 265 at 128x128, 51 at
+   400x400) and at 37x53, 401x300 and 3000x1 (odd widths, env offsets off
+   16-byte boundaries, a short last band);
 4. run the mapping golden on the card (tests/goldens/mapping_golden.npz,
    tests/test_goldens.py's tolerances) through the three kernels of the
    splat path;
@@ -358,8 +364,8 @@ MLP_RTOL, MLP_ATOL = 1e-5, 1e-6
 # below charge every arithmetic, compare and integer operation at
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# a cold call (_time_cold_ms): twice the H100's 50 MB L2 zeroed before it,
-# and a spin of this many cycles (~0.1 ms) ahead of it on the device
+# a cold call (_time_cold_ms): twice the H100's 50 MB L2 flushed before
+# it, and a spin of this many cycles (~0.1 ms) ahead of it on the device
 L2_FLUSH_BYTES = 100 * 2 ** 20
 COLD_SPIN_CYCLES = 200_000
 # the profiler's own kernels on each side of a profiled run, their
@@ -383,7 +389,7 @@ KERNELS = {
                      "gennbv_tpu/ops/pallas_splat.py:80",
                      fused_splat.zbuf_visible),
     "zbuf_scatter_min": ("gennbv_tpu_torch/csrc/zbuf_scatter_min.cu",
-                         "tools/bench_scatter.py:94",
+                         "tools/bench_scatter.py:93",
                          zbuf_scatter.zbuf_scatter_min),
 }
 
@@ -458,6 +464,10 @@ def phase_build() -> dict:
         secs = dict(zip(KERNELS, pool.map(build, KERNELS)))
     for name, s in secs.items():
         print(f"build: {name}.cu in {s:.2f} s ({len(KERNELS)} builds at once)")
+        # ptxas -v: each kernel's registers, shared memory and spills
+        for line in _cuda.BUILD_LOG[name].splitlines():
+            if re.search(r"Used \d+ registers|spill", line):
+                print(f"build: {name}.cu: ptxas: {line.strip()}")
     return secs
 
 
@@ -480,17 +490,30 @@ def _time_ms(fn, trials: int = 21, calls: int = 10) -> float:
     return statistics.median(times)
 
 
-def _time_cold_ms(fn, trials: int = 21) -> float:
+def _l2_flush(kind: str):
+    """A call that flushes the L2: "read" reads L2_FLUSH_BYTES written once
+    before (a sum into a scalar), so the L2 is left holding clean lines
+    that any later call evicts for free; "zero" writes them, so the L2 is
+    left full of dirty lines and each line a later call allocates first
+    writes one back to HBM."""
+    buf = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
+    if kind == "zero":
+        return buf.zero_
+    sink = torch.empty((), device="cuda")
+    return lambda: torch.sum(buf, 0, out=sink)
+
+
+def _time_cold_ms(fn, trials: int = 21, flush: str = "read") -> float:
     """Median over trials of one call's time from CUDA events, each call
-    made after the L2 is flushed (L2_FLUSH_BYTES zeroed) and behind a spin
-    kernel that keeps the device busy while the host enqueues the call:
-    the events time the device's work on inputs that must come from HBM,
-    as the bound assumes."""
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    made after an L2 flush (_l2_flush(flush)) and behind a spin kernel
+    that keeps the device busy while the host enqueues the call: the
+    events time the device's work on inputs that must come from HBM, as
+    the bound assumes."""
+    flush_l2 = _l2_flush(flush)
     fn()
     times = []
     for _ in range(trials):
-        flush.zero_()
+        flush_l2()
         torch.cuda._sleep(COLD_SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -500,6 +523,13 @@ def _time_cold_ms(fn, trials: int = 21) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cold_floor_ms(flush: str = "read") -> float:
+    """_time_cold_ms of a trivial launch (one float incremented): what any
+    cold call costs on this card, whatever its work."""
+    one = torch.zeros(1, device="cuda")
+    return _time_cold_ms(lambda: one.add_(1.0), flush=flush)
 
 
 def _bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -606,19 +636,26 @@ def _case(label, name, kernel, plain, library, nbytes, ops) -> dict:
     res = {"max_abs_err": err, "ms": _time_ms(kernel), "plain_ms": _time_ms(plain),
            "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": None if library is None else _time_ms(library),
+           # cold: after a clean flush (read), and after a dirty one (zero)
            "cold_ms": _time_cold_ms(kernel),
            "library_cold_ms": None if library is None else _time_cold_ms(library),
+           "cold_dirty_ms": _time_cold_ms(kernel, flush="zero"),
+           "library_cold_dirty_ms": (None if library is None else
+                                     _time_cold_ms(library, flush="zero")),
            "device_launches_per_call": per_call, "kernel_device_ms": device_ms,
            # the library call's own device time, profiled as the kernel's
            "library_device_ms": (None if library is None
                                  else profile_calls(library)[1])}
     lib = ("none" if library is None else
            f"{res['library_ms']:.4f} ms (device {res['library_device_ms']:.4f} "
-           f"ms, cold {res['library_cold_ms']:.4f} ms)")
-    print(f"{label}: kernel {res['ms']:.4f} ms (cold {res['cold_ms']:.4f} ms), "
-          f"plain {res['plain_ms']:.4f} ms, library {lib}, bound "
-          f"{bound_ms:.4f} ms ({bound_by}) (median, CUDA events); {per_call:g} "
-          f"device launch a call, {device_ms:.4f} ms of device time (profiler)")
+           f"ms, cold {res['library_cold_ms']:.4f} ms, dirty "
+           f"{res['library_cold_dirty_ms']:.4f} ms)")
+    print(f"{label}: kernel {res['ms']:.4f} ms (cold {res['cold_ms']:.4f} ms, "
+          f"dirty {res['cold_dirty_ms']:.4f} ms), plain {res['plain_ms']:.4f} "
+          f"ms, library {lib}, bound {bound_ms:.4f} ms ({bound_by}) (median, "
+          f"CUDA events; cold after a clean L2 flush, dirty after a dirty "
+          f"one); {per_call:g} device launch a call, {device_ms:.4f} ms of "
+          "device time (profiler)")
     return res
 
 
@@ -677,6 +714,13 @@ def splat_case(label, vic, uic, z, ok, veps, h, w, depth_max) -> dict:
         19 * nvalid + 16 * n * h * w)
 
 
+def zbuf_geometry(n: int, q: int, h: int, w: int):
+    """The scatter-min's geometry on this card and its description."""
+    geo = zbuf_scatter.geometry(n, q, h, w, zbuf_scatter.sm_count(0))
+    return geo, (f"{geo.bands} bands of {geo.rows} rows, {n * geo.bands} "
+                 f"items on {geo.ctas} CTAs")
+
+
 def zbuf_scatter_case(label, flat, zz, h, w, fill) -> dict:
     n, q = flat.shape
     flat64 = flat.long()
@@ -684,8 +728,9 @@ def zbuf_scatter_case(label, flat, zz, h, w, fill) -> dict:
     # bytes: each point's pixel index and depth (8 B), the image written
     # once (4 B a pixel); operations: a band test and a min a point, the
     # fill of each pixel
+    _, text = zbuf_geometry(n, q, h, w)
     return _case(
-        label, "zbuf_scatter_min",
+        f"{label} ({text})", "zbuf_scatter_min",
         # compared as bits, so that -0.0 and +0.0 differ
         lambda: (zbuf_scatter.zbuf_scatter_min(flat, zz, h, w, fill)
                  .view(torch.int32),),
@@ -716,17 +761,20 @@ def tool_zbuf_inputs(n: int = 256, q: int = 11264, cam: int = 128):
             torch.as_tensor(zz, device="cuda"))
 
 
-def planted_zbuf_inputs(n: int, q: int, hw: int, depth_max: float):
-    """Random pixels and depths in [1, 30) at [n, q] on an hw x hw image,
-    25% at depth_max (not valid), with planted envs: env 0 piles its points
-    on four pixels, env 1 has no valid point, env 2's depths are in
-    [-30, 30) with a pixel that gets only -0.0 and one that gets only
-    +0.0."""
+def planted_zbuf_inputs(n: int, q: int, h: int, w: int, depth_max: float):
+    """Random pixels and depths in [1, 30) at [n, q] on an h x w image,
+    25% at depth_max (not valid), with planted envs (those of the first
+    four that n keeps): env 0 piles its points on four pixels, env 1 has
+    no valid point, env 2's depths are in [-30, 30) with a pixel that gets
+    only -0.0 and one that gets only +0.0, env 3 piles half its points on
+    the two pixels on either side of the kernel's first band edge (the
+    image's middle where an env is one band)."""
+    m, hw = max(n, 4), h * w
     gen = torch.Generator(device="cuda").manual_seed(n + q + hw)
-    flat = torch.randint(0, hw * hw, (n, q), device="cuda", dtype=torch.int32,
+    flat = torch.randint(0, hw, (m, q), device="cuda", dtype=torch.int32,
                          generator=gen)
-    zz = torch.rand(n, q, device="cuda", generator=gen) * 29.0 + 1.0
-    zz[torch.rand(n, q, device="cuda", generator=gen) < 0.25] = depth_max
+    zz = torch.rand(m, q, device="cuda", generator=gen) * 29.0 + 1.0
+    zz[torch.rand(m, q, device="cuda", generator=gen) < 0.25] = depth_max
     flat[0] %= 4
     zz[1] = depth_max
     zz[2] = zz[2] * (60.0 / 29.0) - 32.0
@@ -734,32 +782,46 @@ def planted_zbuf_inputs(n: int, q: int, hw: int, depth_max: float):
     flat[2, :k] = torch.tensor([7, 8], dtype=torch.int32)[:k]
     zz[2][flat[2] == 7] = -0.0
     zz[2][flat[2] == 8] = 0.0
-    return flat, zz
+    if n > 0 and hw > 1:
+        geo = zbuf_scatter.geometry(n, q, h, w, zbuf_scatter.sm_count(0))
+        edge = geo.rows * w if geo.bands > 1 else hw // 2
+        flat[3, : q // 2] = edge - 1 + torch.arange(
+            q // 2, device="cuda", dtype=torch.int32) % 2
+    return flat[:n].contiguous(), zz[:n].contiguous()
 
 
-# the scatter-min's edge cases: (envs, image side, points an env): one
-# point, no point, a ragged Q
-ZBUF_EDGES = [(spec.EVAL_NUM_ENVS, EVAL_HW, 1), (spec.EVAL_NUM_ENVS, EVAL_HW, 0),
-              (N_ENVS, HW, ROLLOUT_Q - 3), (1, EVAL_HW, 9215)]
+# the scatter-min's edge cases: (envs, image height, width, points an env):
+# one point, no point, a ragged Q, one env; env counts that do not divide
+# over the card's CTAs (1, 133, 265 at 128x128, 51 at 400x400); odd widths
+# and env offsets off 16-byte boundaries (37x53), bands of 91 pixels
+# (3000x1 on 132 SMs), a short last band (401 rows); every case with four
+# envs or more piles points on either side of a band edge
+ZBUF_EDGES = [(spec.EVAL_NUM_ENVS, EVAL_HW, EVAL_HW, 1),
+              (spec.EVAL_NUM_ENVS, EVAL_HW, EVAL_HW, 0),
+              (N_ENVS, HW, HW, ROLLOUT_Q - 3), (1, EVAL_HW, EVAL_HW, 9215),
+              (1, HW, HW, ROLLOUT_Q), (133, HW, HW, ROLLOUT_Q),
+              (265, HW, HW, ROLLOUT_Q),
+              (spec.EVAL_NUM_ENVS + 1, EVAL_HW, EVAL_HW, 9216),
+              (5, 37, 53, 700), (5, 401, 300, 5000), (4, 3000, 1, 3000)]
 
 
-def zbuf_scatter_edge_case(n: int, hw: int, q: int) -> None:
+def zbuf_scatter_edge_case(n: int, h: int, w: int, q: int) -> None:
     """The wrapper bit-equal to zbuf_scatter_min_ref on planted inputs at
     one edge case, with one launch a call (counted, and one device launch
     under the profiler)."""
-    flat, zz = planted_zbuf_inputs(max(n, 3), q, hw, 50.0)
-    flat, zz = flat[:n].contiguous(), zz[:n].contiguous()
-    label = f"zbuf_scatter_min [{n}x{q}] -> [{n}x{hw}x{hw}]"
+    flat, zz = planted_zbuf_inputs(n, q, h, w, 50.0)
+    label = f"zbuf_scatter_min [{n}x{q}] -> [{n}x{h}x{w}]"
+    want = zbuf_scatter.zbuf_scatter_min_ref(flat, zz, h, w, 50.0)
+    label += f" ({zbuf_geometry(n, q, h, w)[1]})"
     before = zbuf_scatter.zbuf_scatter_min.launches
-    got = zbuf_scatter.zbuf_scatter_min(flat, zz, hw, hw, 50.0)
+    got = zbuf_scatter.zbuf_scatter_min(flat, zz, h, w, 50.0)
     if zbuf_scatter.zbuf_scatter_min.launches != before + 1:
         raise AssertionError(f"{label}: counted "
                              f"{zbuf_scatter.zbuf_scatter_min.launches - before} "
                              "launches")
-    _equal(label, (got.view(torch.int32),), (zbuf_scatter.zbuf_scatter_min_ref(
-        flat, zz, hw, hw, 50.0).view(torch.int32),))
+    _equal(label, (got.view(torch.int32),), (want.view(torch.int32),))
     per_call, _, names = profile_calls(
-        lambda: zbuf_scatter.zbuf_scatter_min(flat, zz, hw, hw, 50.0), calls=3)
+        lambda: zbuf_scatter.zbuf_scatter_min(flat, zz, h, w, 50.0), calls=3)
     if per_call != 1 or not all("zbuf_scatter_min_kernel" in x for x in names):
         raise AssertionError(f"{label}: {per_call} device launches a call "
                              f"({sorted(names)})")
@@ -903,12 +965,19 @@ def _ragged(inputs, q: int):
     return tuple(x if x.dim() == 1 else x[:, :q].contiguous() for x in inputs)
 
 
-def phase_kernels(eval_scenes, rollout_scenes, dataset_scenes) -> dict:
+def phase_kernels(eval_scenes, rollout_scenes,
+                  dataset_scenes) -> tuple[dict, dict]:
     """Each kernel against its plain version on the inputs of a step of
     the eval, of the rollout, of the DDA step and of the converted
     scenes (dataset_scenes: {label: (scenes, image side)}); returns
-    {kernel: {path: timings}}.  The gather is also held bit-equal on an
+    {kernel: {path: timings}} and the floor of the cold times (a trivial
+    launch's, after each flush).  The gather is also held bit-equal on an
     image with planted values."""
+    floor = {"cold_floor_ms": cold_floor_ms(),
+             "cold_floor_dirty_ms": cold_floor_ms("zero")}
+    print(f"a trivial launch cold: {floor['cold_floor_ms']:.4f} ms after a "
+          f"clean L2 flush, {floor['cold_floor_dirty_ms']:.4f} ms after a "
+          "dirty one (median, CUDA events): the floor of every cold time")
     out = {name: {} for name in KERNELS}
     cam = config.CameraConfig(height=HW, width=HW)
     n = rollout_scenes.num_scenes
@@ -958,20 +1027,23 @@ def phase_kernels(eval_scenes, rollout_scenes, dataset_scenes) -> dict:
         "[256x128x128]", *tool_zbuf_inputs(), HW, HW, bench_scatter.DMAX)
     out["zbuf_scatter_min"]["planted"] = zbuf_scatter_case(
         f"zbuf_scatter_min [{N_ENVS}x{ROLLOUT_Q}] -> [{N_ENVS}x{HW}x{HW}] "
-        "(planted: a pile-up, an empty env, negative depths, signed zeros)",
-        *planted_zbuf_inputs(N_ENVS, ROLLOUT_Q, HW, 50.0), HW, HW, 50.0)
+        "(planted: a pile-up, an empty env, negative depths, signed zeros, "
+        "a pile-up across a band edge)",
+        *planted_zbuf_inputs(N_ENVS, ROLLOUT_Q, HW, HW, 50.0), HW, HW, 50.0)
     for case in ZBUF_EDGES:
         zbuf_scatter_edge_case(*case)
     print(f"zbuf_scatter_min: bit-equal to the plain version with one device "
           f"launch a call at {len(ZBUF_EDGES)} edge cases (Q 1, 0, "
-          f"{ROLLOUT_Q - 3}, 9215 in one env)")
+          f"{ROLLOUT_Q - 3}, 9215 in one env; 1, 133, 265 envs at {HW}x{HW}, "
+          f"{spec.EVAL_NUM_ENVS + 1} at {EVAL_HW}x{EVAL_HW}; 37x53, 401x300, "
+          "3000x1; pile-ups on either side of a band edge)")
     planted_gather_case(G ** 3)
     paths = [gather_edge_case(*case) for case in GATHER_EDGES]
     print(f"gather_image: bit-equal to the plain version with one device "
           f"launch a call at {len(GATHER_EDGES)} edge cases (q 1, 3, 4, "
           f"{G ** 3 + 1}, offset views; {paths.count('scalar')} on the scalar "
           "path) at both image sizes")
-    return out
+    return out, floor
 
 
 def phase_golden() -> None:
@@ -3736,7 +3808,8 @@ def main() -> None:
                 os.path.join(dirs["train"], "scenes.npz")), HW),
             "dataset_held_out": (scene_lib.load_npz(
                 os.path.join(dirs["held_out"], "scenes.npz")), EVAL_HW)}
-        timing = phase_kernels(eval_scenes, rollout_scenes, dataset_scenes)
+        timing, floor = phase_kernels(eval_scenes, rollout_scenes,
+                                      dataset_scenes)
         del dataset_scenes
         phase_golden()
         rollout_counts, rollout_ms = phase_rollout(card, rollout_scenes)
@@ -3773,7 +3846,7 @@ def main() -> None:
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             # times at the eval's shapes; the rollout's beside them
-            **timing[name]["eval"],
+            **timing[name]["eval"], **floor,
             # the profiler's device time per call in each path's run
             "device_ms": eval_ms[name],
             "rollout": {**timing[name]["rollout"],

@@ -23,8 +23,10 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+# -Xptxas -v: ptxas reports each kernel's registers, shared memory and
+# spills (kept in BUILD_LOG)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # H100 shared memory (CUDA's limits for compute capability 9.0): an SM has
 # 228 KB, a CTA may take up to 227 KB of it, and each resident CTA costs
@@ -36,6 +38,8 @@ SHARED_RESERVED_PER_CTA = 1_024
 SHARED_TWO_PER_SM = SHARED_PER_SM // 2 - SHARED_RESERVED_PER_CTA
 # the largest portable thread-block cluster
 MAX_CLUSTER = 8
+# what nvcc printed building csrc/<name>.cu in this process, by name
+BUILD_LOG: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -69,9 +73,10 @@ def load_library(name: str) -> ctypes.CDLL:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                            str(CSRC / f"{name}.cu")],
-                           check=True, capture_output=True, text=True)
+            done = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                                   str(CSRC / f"{name}.cu")],
+                                  check=True, capture_output=True, text=True)
+            BUILD_LOG[name] = done.stdout + done.stderr
             os.replace(tmp, so)
         except subprocess.CalledProcessError as e:
             raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{e.stderr}") from e

@@ -15,10 +15,13 @@ the hand-written kernel ``csrc/zbuf_scatter_min.cu`` once (and raise if it
 cannot run); CPU tensors run the plain PyTorch version
 ``zbuf_scatter_min_ref``.  There is no fallback from one to the other.
 
-The kernel runs one CTA per (env, band of image rows), the band's pixels
-as keys in shared memory; ``band_rows`` and ``ctas_per_env`` give the
-geometry.  The min is order-free, so the kernel's result is
-deterministic and equal bit for bit to the plain version's, except that
+The kernel runs persistent CTAs, at most one an SM, over (env, band of
+image rows) items; the CTA's two halves each build a band as keys in
+shared memory, in a buffer of their own, and store it as they decode it.
+``geometry`` picks the bands and the CTAs from the shapes and the card's
+SM count (``sm_count``).
+The min is order-free, so the kernel's result is deterministic and equal
+bit for bit to the plain version's, except that
 a pixel that gets both -0.0 and +0.0 holds -0.0 in the kernel, while
 ``scatter_reduce_`` compares the two as equal (the env's depths lie
 beyond a 1e-3 near plane).
@@ -27,13 +30,24 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from gennbv_tpu_torch.ops import _cuda
 
-# shared memory a pixel of a CTA's band takes: one uint32 key
+# shared memory a pixel of a band takes: one uint32 key
 BYTES_PER_PIXEL = 4
+# band buffers a CTA holds: one for each of its two halves
+BUFFERS = 2
+# bytes each item streams besides its band: every pixel index and depth of
+# its env, 4 B each (a band cannot know which points fall in it)
+STREAM_BYTES_PER_POINT = 8
+# what a byte of the band written to HBM costs against a byte of the
+# points read, most of them from L2: fitted to a sweep of band heights on
+# an H100 (PERF.md, section 6, PR 14), where any weight from 3.3 to 9.2
+# picks the fastest measured at both paths' shapes
+WRITE_WEIGHT = 6
 
 
 def zbuf_scatter_min_ref(flat: torch.Tensor, zz: torch.Tensor, height: int,
@@ -61,27 +75,65 @@ def _check(flat: torch.Tensor, zz: torch.Tensor) -> None:
         raise ValueError("zbuf_scatter_min: tensors must be contiguous")
 
 
+class Geometry(NamedTuple):
+    """How the kernel cuts the work: each env's image into `bands` bands
+    of `rows` rows (the last may be shorter), the n * bands items walked
+    by `ctas` persistent CTAs, at most one an SM, with a static stride."""
+    rows: int
+    bands: int
+    ctas: int
+
+
+def buffer_bytes(rows: int, width: int) -> int:
+    """Shared memory of one band buffer: the band's keys."""
+    return BYTES_PER_PIXEL * rows * width
+
+
+def fits(rows: int, width: int) -> bool:
+    """Whether BUFFERS buffers of `rows` rows fit one CTA's shared
+    memory."""
+    return BUFFERS * buffer_bytes(rows, width) <= _cuda.SHARED_PER_CTA
+
+
+def item_cost(rows: int, width: int, q: int) -> int:
+    """What one item costs an SM: its band written once, weighed by
+    WRITE_WEIGHT, and its env's Q indices and depths read (from L2 after
+    the first band)."""
+    return (WRITE_WEIGHT * BYTES_PER_PIXEL * rows * width
+            + STREAM_BYTES_PER_POINT * q)
+
+
 @functools.cache
-def band_rows(height: int, width: int) -> int:
-    """Rows of each CTA's band: the image cut into the fewest bands whose
-    keys fit in the shared memory that lets two CTAs share an SM (failing
-    that, in one CTA's limit), its rows spread evenly over them; the last
-    band holds what is left.  Raises where one row does not fit in a
-    CTA."""
-    row_bytes = BYTES_PER_PIXEL * width
-    for budget in (_cuda.SHARED_TWO_PER_SM, _cuda.SHARED_PER_CTA):
-        if row_bytes <= budget:
-            bands = -(-(height * row_bytes) // budget)
-            while -(-height // bands) * row_bytes > budget:
-                bands += 1
-            return -(-height // bands)
-    raise ValueError(f"zbuf_scatter_min: a row of {width} pixels exceeds the "
-                     f"{_cuda.SHARED_PER_CTA} B of shared memory of one CTA")
+def geometry(n: int, q: int, height: int, width: int, sms: int) -> Geometry:
+    """The band count, among those whose BUFFERS buffers fit one CTA's
+    shared memory, that minimises what the busiest SM moves:
+    ceil(items / sms) * item_cost, on min(items, sms) CTAs; the fewest
+    bands among equals.  An SM's items follow one another through its
+    memory path, so the SM that moves the most sets the kernel's end.
+    Raises where one row does not fit."""
+    if n < 1 or sms < 1:
+        raise ValueError(f"zbuf_scatter_min: no geometry for {n} envs on "
+                         f"{sms} SMs")
+    best, best_cost = None, None
+    for bands in range(1, height + 1):
+        rows = -(-height // bands)
+        if -(-height // rows) != bands or not fits(rows, width):
+            continue                   # no band of whole rows gives this count
+        items = n * bands
+        cost = -(-items // sms) * item_cost(rows, width, q)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = Geometry(rows, bands, min(items, sms)), cost
+    if best is None:
+        raise ValueError(f"zbuf_scatter_min: {BUFFERS} buffers of a row of "
+                         f"{width} pixels exceed the {_cuda.SHARED_PER_CTA} B "
+                         "of shared memory of one CTA")
+    return best
 
 
-def ctas_per_env(height: int, width: int) -> int:
-    """CTAs, one a band, that share an env's image."""
-    return -(-height // band_rows(height, width))
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def zbuf_scatter_min(flat: torch.Tensor, zz: torch.Tensor, height: int,
@@ -96,14 +148,27 @@ def zbuf_scatter_min(flat: torch.Tensor, zz: torch.Tensor, height: int,
         return zbuf_scatter_min_ref(flat, zz, height, width, fill)
     if flat.device.type != "cuda":
         raise ValueError(f"zbuf_scatter_min: no kernel for device {flat.device}")
-    rows = band_rows(height, width)
+    n, q = flat.shape
+    if n == 0:
+        return torch.empty(0, height, width, dtype=torch.float32,
+                           device=flat.device)
+    return launch(flat, zz, height, width, fill,
+                  geometry(n, q, height, width, sm_count(flat.get_device())))
+
+
+zbuf_scatter_min.launches = 0
+
+
+def launch(flat: torch.Tensor, zz: torch.Tensor, height: int, width: int,
+           fill: float, geo: Geometry) -> torch.Tensor:
+    """The kernel on checked CUDA tensors (n > 0) with the geometry given,
+    which ``zbuf_scatter_min`` takes from ``geometry``;
+    ``tools/profile_wrappers.py`` also times other band heights."""
     n, q = flat.shape
     out = torch.empty(n, height, width, dtype=torch.float32, device=flat.device)
-    if n == 0:
-        return out
     err = _cuda.launch(flat.get_device(), _launcher(), flat.data_ptr(),
                        zz.data_ptr(), out.data_ptr(), n, q, height * width,
-                       rows * width, ctas_per_env(height, width), fill)
+                       geo.rows * width, geo.bands, geo.ctas, fill)
     if err != 0:
         raise RuntimeError(f"zbuf_scatter_min kernel launch failed: CUDA "
                            f"error {err}")
@@ -111,14 +176,12 @@ def zbuf_scatter_min(flat: torch.Tensor, zz: torch.Tensor, height: int,
     return out
 
 
-zbuf_scatter_min.launches = 0
-
-
 @functools.cache
 def _launcher():
     fn = _cuda.load_library("zbuf_scatter_min").zbuf_scatter_min
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

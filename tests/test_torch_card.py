@@ -200,11 +200,11 @@ def test_fused_splat_kernel_without_points_or_envs(cuda, n, q):
                                    (401, 300, 5000), (37, 53, 700),
                                    (16, 16, 40), (90, 20000, 3000)])
 def test_zbuf_scatter_kernel_equals_plain(cuda, h, w, q):
-    """Points on the first and last row of every CTA's band (env 0), a
+    """Points on the first and last row of every band (env 0), a
     pile-up of points on one pixel at many depths (env 1), no valid point
     (env 2), negative depths with pixels that get only -0.0 or only +0.0
     (env 3); 401 rows leave a short last band, a 20,000-pixel row takes
-    one band a row."""
+    one band a row, 37x53 images start off 16-byte boundaries."""
     from gennbv_tpu_torch.ops import zbuf_scatter
     gen = torch.Generator(device="cuda").manual_seed(h + w + q)
     n = 4
@@ -212,7 +212,7 @@ def test_zbuf_scatter_kernel_equals_plain(cuda, h, w, q):
                          generator=gen)
     zz = torch.rand(n, q, device="cuda", generator=gen) * 29.0 + 1.0
     zz[torch.rand(n, q, device="cuda", generator=gen) < 0.3] = 50.0
-    rows = zbuf_scatter.band_rows(h, w)
+    rows = zbuf_scatter.geometry(n, q, h, w, zbuf_scatter.sm_count(0)).rows
     edges = torch.tensor(sorted({r for b in range(0, h, rows)
                                  for r in (b, min(h, b + rows) - 1)}),
                          dtype=torch.int32, device="cuda")
@@ -254,8 +254,11 @@ def test_zbuf_scatter_kernel_without_points_or_envs(cuda, n, q):
 
 
 def test_zbuf_scatter_kernel_at_the_tools_defaults(cuda):
-    """tools/bench_scatter.py's inputs (256 x 11264 at 128x128) and the
-    planted rollout case, bit-equal with one device launch a call."""
+    """tools/bench_scatter.py's inputs (256 x 11264 at 128x128), and
+    bit-equal with one device launch a call at chip_smoke.py's edge cases:
+    Q of 1, 0 and ragged, env counts that do not divide over the card's
+    CTAs, odd widths and env offsets off 16-byte boundaries, and pile-ups
+    on either side of a band edge."""
     import chip_smoke
     assert chip_smoke.zbuf_scatter_case(
         "tool", *chip_smoke.tool_zbuf_inputs(), 128, 128, 50.0)[

@@ -6,8 +6,10 @@ holds the env's whole G^3 grid of flags in one CTA; the image gather
 (``ops/gather.py``) runs a 1-D grid of threads that take vectors of 4
 queries where the layout allows, and single queries where it does not;
 the exact scatter-min z-buffer (``ops/zbuf_scatter.py``) cuts the env's
-image into bands of rows, one a CTA, with no halo between them."""
+image into bands of rows with no halo between them, walked by persistent
+CTAs, each half of a CTA building a band in a buffer of its own."""
 import test_torch_threads  # noqa: F401  (one torch thread a worker)
+import numpy as np
 import pytest
 import torch
 
@@ -149,46 +151,119 @@ def test_gather_geometry_refuses_what_the_kernel_does_not_index(n, q, fits):
 # and a single row and a single column
 ZBUF_SHAPES = [(400, 400), (128, 128), (16, 16), (37, 53), (401, 300),
                (1, 1000), (3000, 1), (64, 48), (90, 20000)]
+# (envs, points an env) at each shape: one env and one point, a few envs,
+# the eval's and the rollout's (and an env count past two waves of 132),
+# no point at all
+ZBUF_LOADS = [(1, 1), (5, 700), (50, 9216), (265, 11264), (4, 0)]
+# the SM counts of an H100 SXM and PCIe, and of a card with one SM
+SM_COUNTS = [132, 114, 1]
 
 
+def _zbuf_items(n, h, w, geo):
+    """Every item the kernel's CTAs walk (a CTA's two halves are its
+    lanes; lane l of CTA c takes c + l * ctas, then every 2 * ctas on):
+    its CTA, env, first pixel and pixel count, in the order of the walk."""
+    items = n * geo.bands
+    walk = [(c, np.arange(c + lane * geo.ctas, items, 2 * geo.ctas))
+            for c in range(geo.ctas) for lane in range(2)]
+    cta = np.concatenate([np.full(len(w_), c) for c, w_ in walk])
+    walk = np.concatenate([w_ for _, w_ in walk])
+    lo = walk % geo.bands * geo.rows * w
+    return (walk, cta, walk // geo.bands, lo,
+            np.minimum(geo.rows * w, h * w - lo))
+
+
+@pytest.mark.parametrize("sms", SM_COUNTS)
 @pytest.mark.parametrize("h,w", ZBUF_SHAPES)
-def test_zbuf_scatter_bands_cover_the_image_and_fit(h, w):
-    """Every row in exactly one band, in order, the last no taller than
-    the rest, each band's keys (4 B a pixel) in one CTA's
-    shared memory; in the memory that lets two CTAs share an SM wherever
-    one row fits there."""
-    rows = zbuf_scatter.band_rows(h, w)
-    ctas = zbuf_scatter.ctas_per_env(h, w)
-    bands = [range(b * rows, min(h, (b + 1) * rows)) for b in range(ctas)]
-    assert [r for b in bands for r in b] == list(range(h))
-    assert all(len(b) > 0 for b in bands)
-    assert all(len(b) == rows for b in bands[:-1]) and len(bands[-1]) <= rows
-    smem = zbuf_scatter.BYTES_PER_PIXEL * rows * w
-    assert zbuf_scatter.BYTES_PER_PIXEL == 4
-    assert smem <= _cuda.SHARED_PER_CTA == 232_448
-    if 4 * w <= _cuda.SHARED_TWO_PER_SM:
-        assert smem <= _cuda.SHARED_TWO_PER_SM
-        # the fewest bands that fit: one fewer would not
-        assert ctas == 1 or 4 * w * -(-h // (ctas - 1)) > _cuda.SHARED_TWO_PER_SM
+def test_zbuf_scatter_bands_cover_the_image_and_fit(h, w, sms):
+    """The CTAs' walk, by two lanes a CTA, takes every item once, and each
+    CTA the items c, c + ctas, c + 2 * ctas, ...; each env's bands hold
+    every pixel exactly once, in order, the last no taller than the rest;
+    a CTA's two band buffers (4 B a key) fit one CTA's shared memory; at
+    most one CTA an SM."""
+    for n, q in ZBUF_LOADS:
+        geo = zbuf_scatter.geometry(n, q, h, w, sms)
+        assert geo.ctas == min(n * geo.bands, sms)
+        walk, cta, env, lo, count = _zbuf_items(n, h, w, geo)
+        assert np.array_equal(np.sort(walk), np.arange(n * geo.bands))
+        assert np.array_equal(cta[np.argsort(walk)],
+                              np.arange(n * geo.bands) % geo.ctas)
+        assert (count > 0).all()
+        # each env's bands, in pixel order, tile [0, H*W) end to end
+        order = np.lexsort((lo, env))
+        env, lo, end = env[order], lo[order], (lo + count)[order]
+        starts = np.r_[True, env[1:] != env[:-1]]
+        ends = np.r_[env[1:] != env[:-1], True]
+        assert np.array_equal(env[starts], np.arange(n))
+        assert (lo[starts] == 0).all() and (end[ends] == h * w).all()
+        assert np.array_equal(lo[~starts], end[:-1][~starts[1:]])
+        assert (geo.bands - 1) * geo.rows < h <= geo.bands * geo.rows
+        assert zbuf_scatter.BYTES_PER_PIXEL == 4 and zbuf_scatter.BUFFERS == 2
+        assert zbuf_scatter.buffer_bytes(geo.rows, w) == 4 * geo.rows * w
+        assert 2 * zbuf_scatter.buffer_bytes(geo.rows, w) <= \
+            _cuda.SHARED_PER_CTA == 232_448
+        assert zbuf_scatter.fits(geo.rows, w)
+
+
+@pytest.mark.parametrize("sms", SM_COUNTS)
+@pytest.mark.parametrize("h,w", ZBUF_SHAPES)
+def test_zbuf_scatter_band_count_minimises_the_busiest_sm(h, w, sms):
+    """Over every band height whose two buffers fit one CTA, none gives
+    an SM less to move than the chosen one: the busiest SM's items
+    (ceil(items / SMs)) times each item's cost (its band's bytes written,
+    weighed 6 to 1, and its env's indices and depths read); among equals,
+    the fewest bands.  The weight is the card's, fitted to a sweep of
+    band heights (test_zbuf_scatter_geometry_at_the_paths_shapes holds
+    what that sweep found fastest)."""
+    for n, q in ZBUF_LOADS:
+        geo = zbuf_scatter.geometry(n, q, h, w, sms)
+
+        def busiest(rows):
+            items = n * -(-h // rows)
+            return -(-items // sms) * (6 * 4 * rows * w + 8 * q)
+
+        best = busiest(geo.rows)
+        for rows in range(1, h + 1):
+            if 2 * zbuf_scatter.buffer_bytes(rows, w) > _cuda.SHARED_PER_CTA:
+                continue
+            assert busiest(rows) >= best
+            if busiest(rows) == best:
+                assert -(-h // rows) >= geo.bands
 
 
 def test_zbuf_scatter_geometry_at_the_paths_shapes():
-    """128x128: the whole 64 KB image in one CTA an env; 400x400: the
-    640 KB image in 6 bands of 67 rows (the last 65), 107,200 B each, so
-    two CTAs share an SM."""
-    assert zbuf_scatter.ctas_per_env(128, 128) == 1
-    assert zbuf_scatter.band_rows(128, 128) == 128
-    assert zbuf_scatter.ctas_per_env(400, 400) == 6
-    assert zbuf_scatter.band_rows(400, 400) == 67
-    assert 4 * 67 * 400 == 107_200 <= _cuda.SHARED_TWO_PER_SM
-    assert 400 - 5 * 67 == 65
+    """On 132 SMs, the fastest of a sweep of band heights on an H100 at
+    both shapes.  The rollout (256 envs, Q 11,264, 128x128): one band an
+    env, 256 items on 132 CTAs, at most 2 a CTA (one a lane); 2 to 7
+    bands measured slower.  The eval (50 envs, Q 9,216, 400x400): 10
+    bands of 40 rows, 500 items on 132 CTAs, at most 4 a CTA, 64,000 B a
+    band; 7 bands of 58 rows (3 items of 92,800 B a CTA) came second, 6,
+    8, 13, 15 and 20 bands slower.  On 114 SMs the eval takes 9 bands of
+    45."""
+    roll = zbuf_scatter.geometry(256, 11264, 128, 128, 132)
+    assert roll == zbuf_scatter.Geometry(rows=128, bands=1, ctas=132)
+    assert -(-256 // 132) == 2
+    ev = zbuf_scatter.geometry(50, 9216, 400, 400, 132)
+    assert ev == zbuf_scatter.Geometry(rows=40, bands=10, ctas=132)
+    assert -(-500 // 132) == 4 and 4 * 40 * 400 == 64_000
+    assert zbuf_scatter.fits(58, 400) and zbuf_scatter.fits(72, 400)
+    assert not zbuf_scatter.fits(73, 400)
+    item = 8 * 9216                       # an item's indices and depths
+    assert 4 * (6 * 64_000 + item) < 3 * (6 * 92_800 + item)
+    assert zbuf_scatter.geometry(50, 9216, 400, 400, 114) == \
+        zbuf_scatter.Geometry(rows=45, bands=9, ctas=114)
 
 
 def test_zbuf_scatter_geometry_refuses_what_no_cta_holds():
-    """A row of more than 58,112 pixels does not fit in one CTA; a row
-    of 40,000 does, alone in its band."""
-    assert zbuf_scatter.band_rows(5, 40_000) == 1
-    assert zbuf_scatter.band_rows(5, 58_112) == 1
-    assert 4 * 58_112 == _cuda.SHARED_PER_CTA
+    """Two buffers of a row of more than 29,056 pixels (4 B a key) do not
+    fit in one CTA; a row of 29,056 does, alone in its band; no envs or no
+    SMs is no geometry."""
+    assert zbuf_scatter.geometry(1, 10, 5, 20_000, 132).rows == 1
+    assert zbuf_scatter.geometry(1, 10, 5, 29_056, 132).rows == 1
+    assert 2 * 4 * 29_056 == _cuda.SHARED_PER_CTA
     with pytest.raises(ValueError):
-        zbuf_scatter.band_rows(5, 58_113)
+        zbuf_scatter.geometry(1, 10, 5, 29_057, 132)
+    with pytest.raises(ValueError):
+        zbuf_scatter.geometry(0, 10, 5, 5, 132)
+    with pytest.raises(ValueError):
+        zbuf_scatter.geometry(1, 10, 5, 5, 0)

@@ -27,6 +27,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    - phase 10's converted scenes: the three at the training set's Q
      (256 envs, 128x128) and at Q - 3 (the gather's scalar path), and at
      the held-out set's Q (50 envs, 400x400);
+   - the bench's 400x400 leg (phase 16: the flagship's 256 envs, Q =
+     11264, at 400x400): the fused splat, the hit scatter and the carve
+     gather;
    - tools/bench_scatter.py's defaults (256 x 11264 at 128x128, its
      numpy draws): the scatter-min z-buffer;
    and the gather once more on an image with planted values (bf16 ties,
@@ -239,6 +242,19 @@ Phases, in order; any failure raises and the script exits non-zero:
       iteration's seconds;
    d. python -m gennbv_tpu_torch.tools.bench_scatter at its defaults:
       every form's line, the kernel bit-equal to the library scatter-min.
+16. the bench (gennbv_tpu_torch/bench.py, the port of the root bench.py)
+   in this process through its emit: 2 timed iterations of the flagship
+   training iteration at 128x128 with its phases, then its 400x400 leg
+   without them (the bench's own run times both legs' phases), each timed
+   window under a raw torch.profiler profile (device records only).
+   Prints the bench's two lines as they are and checks that both parse,
+   each leg's value > 0, 0 < mfu <= 1.05 and 0 < hbm_util <= 1.05 for the
+   iteration (and each phase of the headline), each timed window's kernel
+   launches (128 an iteration of the splat path's three, none of the
+   scatter-min) equal to the profiler's device launches over the same
+   window, and the run's launches in all.  (Its timings are taken under
+   the profiler: the bench's own numbers come from python -m
+   gennbv_tpu_torch.bench.)
 The meshes are converted before phase 3, which times the kernels at
 their Q.  The last two lines of stdout are the kernel summary with the card's name
 and power limit before them, then the result line
@@ -254,6 +270,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -265,12 +282,13 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from gennbv_tpu_torch import config, graft_entry, spec
+from gennbv_tpu_torch import bench, config, graft_entry, spec
 from gennbv_tpu_torch.algo import (dqn, evaluation, gae, her, off_policy,
                                    on_policy_runner, ppo, rollout)
 from gennbv_tpu_torch.algo import replay_buffer as rb
@@ -295,9 +313,11 @@ from gennbv_tpu_torch.models import distributions
 from gennbv_tpu_torch.ops import (_cuda, backproject, camera, carve, fp32,
                                   fused_splat, gather, render, scatter, splat,
                                   voxel, zbuf_scatter)
+from gennbv_tpu_torch.ops.kernels import WRAPPERS, launches, reset_launches
 from gennbv_tpu_torch.examples import custom_env_families
 from gennbv_tpu_torch.tools import bench_scatter, convert_dataset, post_run
 from gennbv_tpu_torch.train import play, train_eval_gennbv, train_rsl
+from gennbv_tpu_torch.utils.device import card_line
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # phase 14 reuses tests/test_torch_mesh.py's update case (no jax there)
@@ -332,6 +352,9 @@ TERRAIN_SCENES, TERRAIN_STEPS = 256, 16
 # phase 15: the exact z-buffer path's steps held to the CPU, its training
 # iterations
 EXACT_CPU_STEPS, EXACT_ITERS = 16, 2
+# phase 16: the bench's timed iterations of the headline leg (the 400x400
+# leg's are the bench's own 2), and its --budget-400, which both legs fit
+BENCH_ITERS, BENCH_BUDGET_S = 2, 900.0
 # tests/test_torch_legged.py's tolerance of a control step from the same
 # state (of each field's largest magnitude), and the fields it holds
 LEGGED_SCALE_TOL = 1e-3
@@ -379,19 +402,19 @@ PADS_LOST = {"leading": 0, "trailing": 0}
 HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpy")
 
+# each kernel's source and the TPU kernel it replaces (the wrappers, by the
+# same names: ops/kernels.WRAPPERS)
 KERNELS = {
     "gather_image": ("gennbv_tpu_torch/csrc/gather_image.cu",
-                     "gennbv_tpu/ops/pallas_gather.py:37", gather.gather_image),
+                     "gennbv_tpu/ops/pallas_gather.py:37"),
     "scatter_cells_any": ("gennbv_tpu_torch/csrc/scatter_cells_any.cu",
-                          "gennbv_tpu/ops/pallas_scatter.py:47",
-                          scatter.scatter_cells_any),
+                          "gennbv_tpu/ops/pallas_scatter.py:47"),
     "zbuf_visible": ("gennbv_tpu_torch/csrc/zbuf_visible.cu",
-                     "gennbv_tpu/ops/pallas_splat.py:80",
-                     fused_splat.zbuf_visible),
+                     "gennbv_tpu/ops/pallas_splat.py:80"),
     "zbuf_scatter_min": ("gennbv_tpu_torch/csrc/zbuf_scatter_min.cu",
-                         "tools/bench_scatter.py:93",
-                         zbuf_scatter.zbuf_scatter_min),
+                         "tools/bench_scatter.py:93"),
 }
+assert set(KERNELS) == set(WRAPPERS)
 
 
 # the __global__ function each wrapper launches, once a call (csrc/*.cu)
@@ -418,22 +441,6 @@ def exact_zbuf_expect(k: int) -> dict:
     and the carve), the hit scatter once, the fused splat never."""
     return {"gather_image": 2 * k, "scatter_cells_any": k, "zbuf_visible": 0,
             "zbuf_scatter_min": k}
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
-def reset_launches() -> None:
-    for _, _, fn in KERNELS.values():
-        fn.launches = 0
-
-
-def launches() -> dict:
-    return {name: fn.launches for name, (_, _, fn) in KERNELS.items()}
 
 
 def phase_device() -> str:
@@ -554,10 +561,35 @@ def _equal(label, got, want) -> float:
     return err
 
 
-def _profiled(label: str, run):
+class Span(NamedTuple):
+    """A device record as ``_profiled(..., raw=True)`` returns it."""
+    name: str
+    start_ns: int
+
+
+def _device_spans(prof, raw: bool) -> list:
+    """The profile's device activities (user annotations excluded) in the
+    order of their device start: FunctionEvents, or with `raw` Spans read
+    straight from kineto's records (no event tree is built)."""
+    from torch.autograd import DeviceType
+    if raw:
+        return sorted((Span(e.name(), e.start_ns())
+                       for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == DeviceType.CUDA
+                       and not e.is_user_annotation()),
+                      key=lambda s: s.start_ns)
+    return sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation),
+                  key=lambda e: e.time_range.start)
+
+
+def _profiled(label: str, run, raw: bool = False):
     """Runs `run` under torch.profiler; returns its value and its device
     activities (user annotations excluded) in the order of their device
-    start.
+    start.  With `raw` (a run of hundreds of thousands of kernels: whole
+    training iterations) the profile records no host activity and returns
+    the device's as Spans.
 
     On the card, a profile taken in a process that has worked for a while
     can lose device records at either end of its session, more of them
@@ -569,7 +601,6 @@ def _profiled(label: str, run):
     no pad on one side lost more than that: the profiler's fault, not the
     program's, so it is taken again, up to PROFILE_TAKES times, each take
     printed.  PADS_LOST keeps the most pads lost on each side."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     def pads():
@@ -577,18 +608,17 @@ def _profiled(label: str, run):
             torch.cuda._sleep(PAD_CYCLES)
         torch.cuda.synchronize()
 
+    activities = [ProfilerActivity.CUDA]
+    if not raw:
+        activities.append(ProfilerActivity.CPU)
     for take in range(1, PROFILE_TAKES + 1):
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                                ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.profile(activities=activities) as prof:
             pads()
             value = run()
             torch.cuda.synchronize()
             pads()
-        spans = sorted((e for e in prof.events()
-                        if e.device_type == DeviceType.CUDA
-                        and not e.is_user_annotation),
-                       key=lambda e: e.time_range.start)
+        spans = _device_spans(prof, raw)
         is_pad = ["spin_kernel" in e.name for e in spans]
         lead = next((i for i, p in enumerate(is_pad) if not p), len(spans))
         tail = len(spans) - next((i for i, p in enumerate(reversed(is_pad))
@@ -661,13 +691,8 @@ def _case(label, name, kernel, plain, library, nbytes, ops) -> dict:
 
 def gather_case(label, img, vi, ui) -> dict:
     n, h, w = img.shape
-    q = vi.shape[1]
     flat = vi.long() * w + ui.long()
     img16 = img.to(torch.bfloat16).float().reshape(n, h * w)
-    # what the data needs: each distinct pixel read once (4 B), the two
-    # index arrays (8 B a point), the output (4 B a point)
-    env = torch.arange(n, device=img.device)[:, None] * (h * w)
-    distinct = torch.unique(flat + env).numel()
     return _case(
         label, "gather_image",
         lambda: (gather.gather_image(img, vi, ui),),
@@ -675,18 +700,14 @@ def gather_case(label, img, vi, ui) -> dict:
         # library: one torch.gather on the image already rounded to bf16,
         # with the flat indices precomputed (excludes both)
         lambda: torch.gather(img16, 1, flat),
-        4 * distinct + 12 * n * q, 2 * n * q)
+        *gather.work(img, vi, ui))
 
 
 def scatter_case(label, idx, valid) -> dict:
-    n, q, _ = idx.shape
+    n = idx.shape[0]
     flat = (idx[..., 0].long() * G + idx[..., 1]) * G + idx[..., 2]
     flat = torch.where(valid, flat, G ** 3)
     grid = torch.zeros(n, G ** 3 + 1, device=idx.device)
-    nvalid = int(valid.sum())
-    # the validity of every point (1 B), the indices of the valid ones
-    # (12 B), the grid written once (4 B a cell); a flat index and a
-    # store per valid point
     return _case(
         label, "scatter_cells_any",
         lambda: (scatter.scatter_cells_any(idx, valid, G),),
@@ -694,24 +715,17 @@ def scatter_case(label, idx, valid) -> dict:
         # library: one scatter_ of 1.0 into a zeroed grid with a spare
         # cell, the flat indices precomputed (excludes both)
         lambda: grid.scatter_(1, flat, 1.0),
-        n * q + 12 * nvalid + 4 * n * G ** 3, 5 * nvalid)
+        *scatter.work(idx, valid, G))
 
 
 def splat_case(label, vic, uic, z, ok, veps, h, w, depth_max) -> dict:
-    n, q = z.shape
-    nvalid = int(ok.sum())
-    # bytes: the validity of every point, pixel and depth of the valid ones,
-    # the slack; the z-buffer and the visibility written once.  Operations:
-    # 19 per valid point (z range, digits, key, visibility compare) and 16
-    # per pixel (9-key min, decode)
     return _case(
         label, "zbuf_visible",
         lambda: fused_splat.zbuf_visible(vic, uic, z, ok, veps, h, w, depth_max),
         lambda: fused_splat.zbuf_visible_ref(vic, uic, z, ok, veps, h, w,
                                              depth_max),
         None,            # no single PyTorch call computes this function
-        n * q + 12 * nvalid + 4 * n + 4 * n * h * w + n * q,
-        19 * nvalid + 16 * n * h * w)
+        *fused_splat.work(vic, uic, z, ok, veps, h, w))
 
 
 def zbuf_geometry(n: int, q: int, h: int, w: int):
@@ -725,9 +739,6 @@ def zbuf_scatter_case(label, flat, zz, h, w, fill) -> dict:
     n, q = flat.shape
     flat64 = flat.long()
     image = torch.full((n, h * w), fill, device=flat.device)
-    # bytes: each point's pixel index and depth (8 B), the image written
-    # once (4 B a pixel); operations: a band test and a min a point, the
-    # fill of each pixel
     _, text = zbuf_geometry(n, q, h, w)
     return _case(
         f"{label} ({text})", "zbuf_scatter_min",
@@ -740,7 +751,7 @@ def zbuf_scatter_case(label, flat, zz, h, w, fill) -> dict:
         # indices precomputed (excludes both; a min is idempotent, so the
         # image is not refilled)
         lambda: image.scatter_reduce_(1, flat64, zz, reduce="amin"),
-        8 * n * q + 4 * n * h * w, 2 * n * q + n * h * w)
+        *zbuf_scatter.work(flat, zz, h, w))
 
 
 def exact_zbuf_inputs(vic, uic, z, ok, w, depth_max):
@@ -968,8 +979,9 @@ def _ragged(inputs, q: int):
 def phase_kernels(eval_scenes, rollout_scenes,
                   dataset_scenes) -> tuple[dict, dict]:
     """Each kernel against its plain version on the inputs of a step of
-    the eval, of the rollout, of the DDA step and of the converted
-    scenes (dataset_scenes: {label: (scenes, image side)}); returns
+    the eval, of the rollout, of the bench's 400x400 leg, of the DDA step
+    and of the converted scenes (dataset_scenes: {label: (scenes, image
+    side)}); returns
     {kernel: {path: timings}} and the floor of the cold times (a trivial
     launch's, after each flush).  The gather is also held bit-equal on an
     image with planted values."""
@@ -1005,8 +1017,11 @@ def phase_kernels(eval_scenes, rollout_scenes,
             out["gather_image"][label] = gather_case(
                 f"{label}: gather_image [{n}x{hw}x{hw}] x [{n}x{qq}]", zbuf,
                 sp[0], sp[1])
+    # bench400: the bench's 400x400 leg, the flagship scenes at the eval's
+    # camera (the exact z-buffer does not run there)
     for path, scenes, hw in (("eval", eval_scenes, EVAL_HW),
-                             ("rollout", rollout_scenes, HW)):
+                             ("rollout", rollout_scenes, HW),
+                             ("bench400", rollout_scenes, EVAL_HW)):
         cam = config.CameraConfig(height=hw, width=hw)
         n, q = scenes.surf_mask.shape
         splat_in, scatter_in, gather_in = _step_inputs(scenes, cam)
@@ -1017,6 +1032,8 @@ def phase_kernels(eval_scenes, rollout_scenes,
             f"{path}: scatter_cells_any [{n}x{q}] -> [{n}x{G}^3]", *scatter_in)
         out["gather_image"][path] = gather_case(
             f"{path}: gather_image [{n}x{hw}x{hw}] x [{n}x{G ** 3}]", *gather_in)
+        if path == "bench400":
+            continue
         vic, uic, z, ok, _ = splat_in
         out["zbuf_scatter_min"][path] = zbuf_scatter_case(
             f"{path}: zbuf_scatter_min [{n}x{q}] -> [{n}x{hw}x{hw}]",
@@ -3759,6 +3776,92 @@ def phase_exact_zbuf(card: str, scenes, eval_scenes,
     return counts, device_ms
 
 
+def _bench_window(windows: list):
+    """A ``window`` for bench.bench_config: the timed loop under a raw
+    profile (_profiled), raising unless each kernel's device launches
+    there equal the bench's own count of the same window; appends each
+    window's (launches, device activities, takes) to `windows`."""
+    def window(loop):
+        takes = []
+
+        def take():
+            takes.append(None)
+            return loop()
+
+        win, spans = _profiled("bench: timed window", take, raw=True)
+        seen = {name: sum(PORT_KERNEL_FUNCTIONS[name] in s.name
+                          for s in spans) for name in KERNELS}
+        if seen != win.launches:
+            raise AssertionError(f"bench: the timed window launched {seen} "
+                                 f"on the device (profiler), the bench "
+                                 f"counted {win.launches}")
+        windows.append((seen, len(spans), len(takes)))
+        return win
+    return window
+
+
+def _check_bench_line(label: str, res: dict, iters: int) -> None:
+    """A bench result's value, utilizations (the iteration's, and each
+    phase's where it has them) and window launches."""
+    want = splat_expect(N_STEPS * iters)
+    if not res.get("value", 0) > 0:
+        raise AssertionError(f"bench {label}: no positive value: {res}")
+    for part, r in (("iteration", res), *res.get("phases", {}).items()):
+        for key in ("mfu", "hbm_util"):
+            if not 0 < r[key] <= 1.05:
+                raise AssertionError(f"bench {label} {part}: {key} {r[key]} "
+                                     "outside (0, 1.05]")
+    if res["kernel_launches"] != want:
+        raise AssertionError(f"bench {label}: the timed window launched "
+                             f"{res['kernel_launches']}, expected {want}")
+
+
+def phase_bench(card: str) -> dict:
+    """python -m gennbv_tpu_torch.bench run in this process (iters=2, the
+    headline leg with its phases and the 400x400 leg without), each timed
+    window under a raw profile; returns each kernel's launches in the
+    whole run."""
+    t0 = time.perf_counter()
+    windows: list = []
+    out = io.StringIO()
+
+    def bench_fn(camera, iters, phases=True):
+        return bench.bench_config(camera=camera, iters=iters,
+                                  phases=phases and camera == HW,
+                                  window=_bench_window(windows))
+
+    reset_launches()
+    bench.emit(bench_fn, argparse.Namespace(
+        iters=BENCH_ITERS, skip_400=False, budget_400=BENCH_BUDGET_S), out=out)
+    counts = launches()
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(line)
+    if len(lines) != 2:
+        raise AssertionError(f"bench: {len(lines)} lines, expected 2")
+    head, merged = (json.loads(line) for line in lines)
+    _check_bench_line("128x128", head, BENCH_ITERS)
+    _check_bench_line("400x400", merged["camera400"], 2)
+    if "phases" in merged["camera400"]:
+        raise AssertionError("bench 400x400: phases ran, expected none")
+    # a leg's env steps: the reset, the warm-up iteration, the timed
+    # window (each take of its profile) and the counted rollout; with the
+    # phases, the timed rollouts and the timed and the counted env steps
+    steps = sum(1 + N_STEPS * (1 + iters * takes + 1)
+                + phases * (N_STEPS * iters + 4 * iters + 1)
+                for iters, phases, (_, _, takes)
+                in zip((BENCH_ITERS, 2), (True, False), windows))
+    if counts != splat_expect(steps):
+        raise AssertionError(f"bench: launched {counts}, expected "
+                             f"{splat_expect(steps)}")
+    for (seen, spans, takes), leg in zip(windows, ("128x128", "400x400")):
+        print(f"bench {leg}: the timed window's kernel launches {seen} equal "
+              f"the profiler's, among {spans} device activities ({takes} "
+              f"take(s)) [{card}]")
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s [{card}]")
+    return counts
+
+
 def phase_cache_pairs(card: str, scenes, pairs: int) -> None:
     """The full-size eval with the init-view cache (zbuf_impl=pallas) and
     without it (mxu), the same kernels on both, in interleaved pairs."""
@@ -3826,20 +3929,22 @@ def main() -> None:
         print(f"phase 14: {time.perf_counter() - t0:.1f} s [{card}]")
         exact_counts, exact_ms = phase_exact_zbuf(card, rollout_scenes,
                                                   eval_scenes, data_root)
+        bench_counts = phase_bench(card)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
         shutil.rmtree(data_root, ignore_errors=True)
     by_path = {"rollout": rollout_counts, "eval": eval_counts,
                "train": train_counts, "report": report_counts, **dda_counts,
                **dataset_counts, "rsl": rsl_counts, **p12_counts,
-               **p13_counts, "mesh": mesh_counts, **exact_counts}
+               **p13_counts, "mesh": mesh_counts, **exact_counts,
+               "bench": bench_counts}
     # each kernel's device time a call, profiled on the path that runs it
     for name in KERNELS:
         if not eval_counts[name]:
             eval_ms[name] = exact_ms["eval"][name]
             rollout_ms[name] = exact_ms["rollout"][name]
     kernels = []
-    for name, (source, replaces, _) in KERNELS.items():
+    for name, (source, replaces) in KERNELS.items():
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,

@@ -36,6 +36,7 @@ import functools
 import torch
 
 from gennbv_tpu_torch.ops import _cuda, splat
+from gennbv_tpu_torch.utils.work import count_kernel
 
 
 def zbuf_visible_ref(vic, uic, z, ok, voxel_eps, height: int, width: int,
@@ -44,6 +45,19 @@ def zbuf_visible_ref(vic, uic, z, ok, voxel_eps, height: int, width: int,
     ``zbuf_visible``."""
     return splat.zbuf_vis_px(vic, uic, z, ok, height, width, depth_max,
                              voxel_eps, footprint)
+
+
+def work(vic, uic, z, ok, voxel_eps, height: int,
+         width: int) -> tuple[int, int]:
+    """The least a call must do on these inputs, for its bound and the
+    bench's count: bytes -- the validity of every point, the pixel and
+    depth of the valid ones, the slack; the z-buffer and the visibility
+    written once -- and operations, 19 per valid point (z range, digits,
+    key, visibility compare) and 16 per pixel (9-key min, decode)."""
+    n, q = z.shape
+    nvalid = int(ok.sum())
+    return (n * q + 12 * nvalid + 4 * n + 4 * n * height * width + n * q,
+            19 * nvalid + 16 * n * height * width)
 
 
 def _check(vic, uic, z, ok, voxel_eps) -> None:
@@ -146,6 +160,7 @@ def launch(vic, uic, z, ok, voxel_eps, height: int, width: int,
     if err != 0:
         raise RuntimeError(f"zbuf_visible kernel launch failed: CUDA error {err}")
     zbuf_visible.launches += 1
+    count_kernel(work, vic, uic, z, ok, voxel_eps, height, width)
     return zbuf, visible
 
 

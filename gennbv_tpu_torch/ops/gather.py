@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from gennbv_tpu_torch.ops import _cuda
+from gennbv_tpu_torch.utils.work import count_kernel
 
 
 def gather_image_ref(img: torch.Tensor, vi: torch.Tensor,
@@ -36,6 +37,19 @@ def gather_image_ref(img: torch.Tensor, vi: torch.Tensor,
     n, h, w = img.shape
     flat = img.to(torch.bfloat16).float().reshape(n, h * w)
     return torch.gather(flat, 1, vi.long() * w + ui.long())
+
+
+def work(img: torch.Tensor, vi: torch.Tensor,
+         ui: torch.Tensor) -> tuple[int, int]:
+    """The least a call must do on these inputs, for its bound and the
+    bench's count: bytes -- each distinct pixel read once (4 B), the two
+    index arrays (8 B a query), the output (4 B a query) -- and
+    operations, two a query."""
+    n, h, w = img.shape
+    q = vi.shape[1]
+    env = torch.arange(n, device=img.device)[:, None] * (h * w)
+    distinct = torch.unique(vi.long() * w + ui.long() + env).numel()
+    return 4 * distinct + 12 * n * q, 2 * n * q
 
 
 # queries a vector on the vector path (int4 loads, float4 stores)
@@ -137,6 +151,7 @@ def _launch(img: torch.Tensor, vi: torch.Tensor, ui: torch.Tensor) -> torch.Tens
     if err != 0:
         raise RuntimeError(f"gather_image kernel launch failed: CUDA error {err}")
     gather_image.launches += 1
+    count_kernel(work, img, vi, ui)
     return out
 
 

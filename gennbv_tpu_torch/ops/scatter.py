@@ -22,6 +22,7 @@ import functools
 import torch
 
 from gennbv_tpu_torch.ops import _cuda
+from gennbv_tpu_torch.utils.work import count_kernel
 
 
 def scatter_cells_any_ref(idx: torch.Tensor, valid: torch.Tensor,
@@ -36,6 +37,16 @@ def scatter_cells_any_ref(idx: torch.Tensor, valid: torch.Tensor,
     grid = torch.zeros(n, g ** 3 + 1, device=idx.device)
     grid.scatter_(1, flat, 1.0)
     return grid[:, : g ** 3].reshape(n, g, g, g)
+
+
+def work(idx: torch.Tensor, valid: torch.Tensor, g: int) -> tuple[int, int]:
+    """The least a call must do on these inputs, for its bound and the
+    bench's count: bytes -- the validity of every point (1 B), the indices
+    of the valid ones (12 B), the grid written once (4 B a cell) -- and
+    operations, a flat index and a store per valid point."""
+    n, q, _ = idx.shape
+    nvalid = int(valid.sum())
+    return n * q + 12 * nvalid + 4 * n * g ** 3, 5 * nvalid
 
 
 def _check(idx: torch.Tensor, valid: torch.Tensor) -> None:
@@ -86,6 +97,7 @@ def scatter_cells_any(idx: torch.Tensor, valid: torch.Tensor,
         raise RuntimeError(f"scatter_cells_any kernel launch failed: CUDA "
                            f"error {err}")
     scatter_cells_any.launches += 1
+    count_kernel(work, idx, valid, g)
     return grid
 
 

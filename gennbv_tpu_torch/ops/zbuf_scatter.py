@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from gennbv_tpu_torch.ops import _cuda
+from gennbv_tpu_torch.utils.work import count_kernel
 
 # shared memory a pixel of a band takes: one uint32 key
 BYTES_PER_PIXEL = 4
@@ -59,6 +60,16 @@ def zbuf_scatter_min_ref(flat: torch.Tensor, zz: torch.Tensor, height: int,
                      device=flat.device)
     out.scatter_reduce_(1, flat.long(), zz, reduce="amin")
     return out.reshape(n, height, width)
+
+
+def work(flat: torch.Tensor, zz: torch.Tensor, height: int,
+         width: int) -> tuple[int, int]:
+    """The least a call must do on these inputs, for its bound and the
+    bench's count: bytes -- each point's pixel index and depth (8 B), the
+    image written once (4 B a pixel) -- and operations, a band test and a
+    min a point and the fill of each pixel."""
+    n, q = flat.shape
+    return 8 * n * q + 4 * n * height * width, 2 * n * q + n * height * width
 
 
 def _check(flat: torch.Tensor, zz: torch.Tensor) -> None:
@@ -173,6 +184,7 @@ def launch(flat: torch.Tensor, zz: torch.Tensor, height: int, width: int,
         raise RuntimeError(f"zbuf_scatter_min kernel launch failed: CUDA "
                            f"error {err}")
     zbuf_scatter_min.launches += 1
+    count_kernel(work, flat, zz, height, width)
     return out
 
 

@@ -33,25 +33,18 @@ kernels are timed at the paths' shapes by ``chip_smoke.py`` phase 3.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import time
 
 import numpy as np
 import torch
 
 from gennbv_tpu_torch.ops import zbuf_scatter
+from gennbv_tpu_torch.utils.device import card_line
 
 DMAX = 50.0
 LEVELS = 64                  # depth levels of the count-product z-buffer
 G = 20                       # the hit grid's side
 ITERS, WARMUP = 20, 3
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def _timed(device: torch.device, fn, *args) -> tuple[object, float]:

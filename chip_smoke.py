@@ -824,11 +824,11 @@ def zbuf_scatter_edge_case(n: int, h: int, w: int, q: int) -> None:
     label = f"zbuf_scatter_min [{n}x{q}] -> [{n}x{h}x{w}]"
     want = zbuf_scatter.zbuf_scatter_min_ref(flat, zz, h, w, 50.0)
     label += f" ({zbuf_geometry(n, q, h, w)[1]})"
-    before = zbuf_scatter.zbuf_scatter_min.launches
+    before = launches()["zbuf_scatter_min"]
     got = zbuf_scatter.zbuf_scatter_min(flat, zz, h, w, 50.0)
-    if zbuf_scatter.zbuf_scatter_min.launches != before + 1:
+    if launches()["zbuf_scatter_min"] != before + 1:
         raise AssertionError(f"{label}: counted "
-                             f"{zbuf_scatter.zbuf_scatter_min.launches - before} "
+                             f"{launches()['zbuf_scatter_min'] - before} "
                              "launches")
     _equal(label, (got.view(torch.int32),), (want.view(torch.int32),))
     per_call, _, names = profile_calls(
@@ -957,11 +957,11 @@ def gather_edge_case(n: int, hw: int, q: int, offset: int) -> str:
              f"{offset} ({geo.path} path)")
     if geo.path != ("scalar" if q % gather.VECTOR or offset % 4 else "vector"):
         raise AssertionError(f"{label}: the wrong path")
-    before = gather.gather_image.launches
+    before = launches()["gather_image"]
     got = gather.gather_image(img, vi, ui)
-    if gather.gather_image.launches != before + 1:
+    if launches()["gather_image"] != before + 1:
         raise AssertionError(f"{label}: counted "
-                             f"{gather.gather_image.launches - before} launches")
+                             f"{launches()['gather_image'] - before} launches")
     _equal(label, (got,), (gather.gather_image_ref(img, vi, ui),))
     per_call, _, names = profile_calls(lambda: gather.gather_image(img, vi, ui),
                                        calls=3)

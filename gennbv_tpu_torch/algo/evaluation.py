@@ -19,6 +19,7 @@ the init view inside ``env.step``, as in the reference.
 """
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple
 
 import numpy as np
@@ -26,10 +27,13 @@ import torch
 
 from gennbv_tpu_torch.models import distributions
 from gennbv_tpu_torch.ops import backproject, camera, chamfer, fp32, render
+from gennbv_tpu_torch.utils import profiling
 
 # point pairs of one NN pass: ~1 GB of squared-distance temporaries at
 # ~40 bytes a pair (the rounding's float64 intermediates)
 _NN_PAIRS_PER_PASS = 25_000_000
+# the unit of each evaluate call's spans: its number in the process
+_calls = itertools.count(1)
 
 
 class EvalResult(NamedTuple):
@@ -215,42 +219,48 @@ def run_episodes(env, policy: torch.nn.Module, point_stride: int = 8,
     """Reset ``env.cfg.num_envs`` envs and run ``max_episode_length``
     steps with the deterministic policy in eval mode (its mode is restored
     after).  With ``compute_accuracy`` each view's strided sub-rays are
-    also ray-marched and back-projected before its step."""
+    also ray-marched and back-projected before its step.  The spans
+    ``eval/reset``, ``eval/step`` a step and ``eval/fetch`` (the copies to
+    the host, the wait for the device)."""
     n = env.cfg.num_envs
     was_training = policy.training
     policy.eval()
     scan_pts, scan_valid = [], []
     try:
         with torch.no_grad():
-            state, reset_out = env.reset(n)
-            obs = reset_out.obs
-            if compute_accuracy:
-                sub_rays = scan_rays(env, point_stride)
-                pts, valid = _init_points(env, state.scene_id, sub_rays)
-                scan_pts.append(pts)
-                scan_valid.append(valid)
-            steps = []
-            for _ in range(env.cfg.max_episode_length):
-                actions = distributions.mode(policy(obs).logits)
+            with profiling.span("eval/reset"):
+                state, reset_out = env.reset(n)
+                obs = reset_out.obs
                 if compute_accuracy:
-                    pts, valid = scan_points(
-                        env, state.scene_id,
-                        step_poses(env, state, actions), sub_rays)
+                    sub_rays = scan_rays(env, point_stride)
+                    pts, valid = _init_points(env, state.scene_id, sub_rays)
                     scan_pts.append(pts)
                     scan_valid.append(valid)
-                state, out = env.step(state, actions)
-                obs = out.obs
-                steps.append(torch.stack([out.reward, out.done.float(),
-                                          out.coverage]))
-            rewards, dones, coverage = torch.stack(steps, 1).cpu().numpy()
+            steps = []
+            for _ in range(env.cfg.max_episode_length):
+                with profiling.span("eval/step"):
+                    actions = distributions.mode(policy(obs).logits)
+                    if compute_accuracy:
+                        pts, valid = scan_points(
+                            env, state.scene_id,
+                            step_poses(env, state, actions), sub_rays)
+                        scan_pts.append(pts)
+                        scan_valid.append(valid)
+                    state, out = env.step(state, actions)
+                    obs = out.obs
+                    steps.append(torch.stack([out.reward, out.done.float(),
+                                              out.coverage]))
+            with profiling.span("eval/fetch"):
+                rewards, dones, coverage = torch.stack(steps, 1).cpu().numpy()
+                init_coverage = reset_out.coverage.cpu().numpy()
+                scans = ((torch.stack(scan_pts).cpu().numpy(),
+                          torch.stack(scan_valid).cpu().numpy())
+                         if compute_accuracy else (None, None))
             return Episodes(
-                init_coverage=reset_out.coverage.cpu().numpy(),
-                rewards=rewards, dones=dones > 0.5, coverage=coverage,
-                scene_id=state.scene_id,
-                scan_pts=(torch.stack(scan_pts).cpu().numpy()
-                          if compute_accuracy else None),
-                scan_valid=(torch.stack(scan_valid).cpu().numpy()
-                            if compute_accuracy else None))
+                init_coverage=init_coverage, rewards=rewards,
+                dones=dones > 0.5, coverage=coverage,
+                scene_id=state.scene_id, scan_pts=scans[0],
+                scan_valid=scans[1])
     finally:
         policy.train(was_training)
 
@@ -283,8 +293,17 @@ def evaluate(env, policy: torch.nn.Module, point_stride: int = 8,
     """Run ``env.cfg.num_envs`` envs for ``env.cfg.max_episode_length``
     steps from one reset, with the deterministic policy.  With
     ``compute_accuracy`` the episode's scan points (``point_stride``) are
-    also held to the scenes' GT point clouds."""
-    ep = run_episodes(env, policy, point_stride, compute_accuracy)
+    also held to the scenes' GT point clouds.  The span ``eval/episode``,
+    of the call's number in the process (``run_episodes``' spans, then
+    ``eval/results``), counted in ``eval/episodes``."""
+    profiling.count("eval/episodes")
+    with profiling.span("eval/episode", next(_calls)):
+        ep = run_episodes(env, policy, point_stride, compute_accuracy)
+        with profiling.span("eval/results"):
+            return _results(env, ep, compute_accuracy)
+
+
+def _results(env, ep: Episodes, compute_accuracy: bool) -> EvalResult:
     n = env.cfg.num_envs
     max_len = env.cfg.max_episode_length
     rewards, coverage = ep.rewards, ep.coverage

@@ -29,7 +29,7 @@ from gennbv_tpu_torch.algo import gae as gae_lib
 from gennbv_tpu_torch.algo import ppo_continuous as ppoc
 from gennbv_tpu_torch.models import gaussian
 from gennbv_tpu_torch.models.actor_critic import GaussianActorCritic
-from gennbv_tpu_torch.utils.profiling import PhaseTimer
+from gennbv_tpu_torch.utils import profiling
 
 # the metrics of an iteration, in the JAX runner's names and order
 METRIC_KEYS = ("mean_reward", "surrogate_loss", "value_loss", "entropy",
@@ -63,7 +63,8 @@ class OnPolicyRunner:
         self.opt = ppoc.make_optimizer(alg_cfg)
         self.opt_state = self.opt.init(self.model)
         self.iteration = 0
-        self.timer = PhaseTimer()
+        # the last iteration's device-timed phases
+        self.phases = profiling.Phases({})
 
     def variables(self) -> dict:
         """The model's parameters by name (what a checkpoint holds)."""
@@ -101,8 +102,9 @@ class OnPolicyRunner:
         """One iteration; returns (env_state, obs, metrics [7] on the
         device, in METRIC_KEYS order)."""
         cfg = self.alg_cfg
-        fence = self.device
-        with self.timer.phase("rollout", fence):
+        dev, unit = self.device, self.iteration + 1
+        profiling.phases(unit)      # what an earlier call left untaken
+        with profiling.span("rollout", unit, dev):
             env_state, obs, b, last = self._rollout(env_state, obs)
             adv, ret = gae_lib.compute_gae(b["rewards"], b["values"],
                                            b["dones"], last.value, cfg.gamma,
@@ -116,7 +118,7 @@ class OnPolicyRunner:
         def flat(x):
             return x.reshape((m,) + x.shape[2:])
 
-        with self.timer.phase("update", fence):
+        with profiling.span("update", unit, dev):
             self.opt_state, um = ppoc.update(
                 self.model, self.opt, cfg, self.opt_state,
                 flat(b["obs"]), None, flat(b["actions"]), flat(b["log_probs"]),
@@ -139,12 +141,12 @@ class OnPolicyRunner:
         obs = out.obs
         metrics = {}
         for _ in range(num_iterations):
-            self.timer.reset()
             t0 = time.perf_counter()
             env_state, obs, dev_metrics = self._train_iteration(env_state, obs)
             metrics = dict(zip(METRIC_KEYS, dev_metrics.tolist()))
             secs = time.perf_counter() - t0
             self.iteration += 1
+            self.phases = profiling.phases(self.iteration)
             if log:
                 self._log(metrics, secs)
             if self.log_dir and self.cfg.save_interval > 0 and (
@@ -155,7 +157,7 @@ class OnPolicyRunner:
 
     def _log(self, metrics: dict, secs: float) -> None:
         steps = self.cfg.num_steps_per_env * self.num_envs
-        rec = {"step": self.iteration, **metrics, **self.timer.metrics(),
+        rec = {"step": self.iteration, **metrics, **self.phases.metrics(),
                "time/iter_seconds": secs, "time/fps": steps / secs}
         if self.log_dir:
             os.makedirs(self.log_dir, exist_ok=True)

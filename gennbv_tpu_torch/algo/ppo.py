@@ -70,6 +70,7 @@ from gennbv_tpu_torch.config import PPOConfig
 from gennbv_tpu_torch.models import distributions
 from gennbv_tpu_torch.ops import fp32
 from gennbv_tpu_torch.parallel import mesh as mesh_lib
+from gennbv_tpu_torch.utils import profiling
 
 
 # float32 bias corrections past their first 1.0 checked to stay there
@@ -494,7 +495,8 @@ class Learner:
     def run(self, data: tuple, rows: torch.Tensor, mu: list, nu: list,
             gathered: bool = False) -> None:
         """Every minibatch of `rows` ([K, B]): eagerly, or as replays of
-        the captured step."""
+        the captured step, counted in ``update/replays``."""
+        profiling.count("update/replays", len(rows))
         if not self.captures:
             for r in rows:
                 self.step(data, r, mu, nu)

@@ -29,7 +29,7 @@ from gennbv_tpu_torch.models import gaussian
 from gennbv_tpu_torch.models.actor_critic import (RecurrentActorCritic,
                                                   RNNState, reset_hidden)
 from gennbv_tpu_torch.ops import fp32
-from gennbv_tpu_torch.utils.profiling import PhaseTimer
+from gennbv_tpu_torch.utils import profiling
 
 
 class RecurrentRollout(NamedTuple):
@@ -202,7 +202,6 @@ class RecurrentOnPolicyRunner:
         self.opt = ppoc.make_optimizer(alg_cfg)
         self.opt_state = self.opt.init(self.model)
         self.iteration = 0
-        self.timer = PhaseTimer()
         # one record an iteration: its metrics and phase seconds
         self.logged: list[dict] = []
 
@@ -213,11 +212,13 @@ class RecurrentOnPolicyRunner:
     def _iteration(self, env_state, obs, hidden):
         """One iteration; returns (env_state, obs, hidden, metrics [4] on
         the device, in METRIC_KEYS order)."""
-        with self.timer.phase("rollout", self.device):
+        unit = self.iteration + 1
+        profiling.phases(unit)      # what an earlier call left untaken
+        with profiling.span("rollout", unit, self.device):
             env_state, obs, hidden, roll = collect(
                 self.model, self.env, env_state, obs, hidden, self.generator,
                 self.n_steps, self.cfg.gamma)
-        with self.timer.phase("update", self.device):
+        with profiling.span("update", unit, self.device):
             self.opt_state, um = update(self.model, self.opt, self.cfg,
                                         self.opt_state, roll, self.generator)
         metrics = torch.stack([roll.rewards.mean(), um.mean_kl,
@@ -235,13 +236,13 @@ class RecurrentOnPolicyRunner:
         hidden = self.model.initial_state(self.num_envs)
         metrics = {}
         for _ in range(num_iterations):
-            self.timer.reset()
             t0 = time.perf_counter()
             env_state, obs, hidden, dev = self._iteration(env_state, obs, hidden)
             metrics = dict(zip(METRIC_KEYS, dev.tolist()))
             secs = time.perf_counter() - t0
             self.iteration += 1
-            rec = {"step": self.iteration, **metrics, **self.timer.metrics(),
+            rec = {"step": self.iteration, **metrics,
+                   **profiling.phases(self.iteration).metrics(),
                    "time/iter_seconds": secs,
                    "time/fps": self.n_steps * self.num_envs / secs}
             self.logged.append(rec)

@@ -13,6 +13,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from gennbv_tpu_torch.utils import profiling
+
 
 class RolloutBatch(NamedTuple):
     obs: torch.Tensor        # [T, N, D] float32 or bfloat16
@@ -67,6 +69,8 @@ def collect(env, policy, env_state, obs: torch.Tensor,
     (``distributions.sample``).  With `out` (a previous rollout's
     ``RolloutBuffers.of``) the observations, actions, values and
     log-probs are written into it, and the batch holds those tensors.
+    Each step is the span ``rollout/step`` (``policy/act``, then
+    ``env/step``); the last values' forward is ``rollout/last_value``.
     Returns (env_state', obs', RolloutBatch, RolloutStats)."""
     # a slice of the envs (a rank's) passes its place to act
     place = {} if rows is None else {"rows": rows, "width": width}
@@ -79,13 +83,18 @@ def collect(env, policy, env_state, obs: torch.Tensor,
     steps = []
     try:
         for t in range(n_steps):
-            obs_seq[t] = obs
-            actions, values, logp = policy.act(obs, generator, **place)
-            env_state, stepped = env.step(env_state, actions)
-            steps.append((actions, values, logp, stepped._replace(obs=None)))
-            obs = stepped.obs
+            with profiling.span("rollout/step"):
+                obs_seq[t] = obs
+                with profiling.span("policy/act"):
+                    actions, values, logp = policy.act(obs, generator,
+                                                       **place)
+                env_state, stepped = env.step(env_state, actions)
+                steps.append((actions, values, logp,
+                              stepped._replace(obs=None)))
+                obs = stepped.obs
         # final value for GAE + the last step's timeout bootstrap
-        last_values = policy(obs).value
+        with profiling.span("rollout/last_value"):
+            last_values = policy(obs).value
     finally:
         policy.train(was_training)
 

@@ -5,7 +5,8 @@ Each iteration collects a rollout (128 env steps), computes GAE and runs
 the 5-epoch minibatched PPO update, all on the runner's device, and is
 enqueued without a host wait: the update gates its minibatches on the
 device (``ppo.Learner``), the rollout lands in buffers the Runner keeps,
-the phases are timed by CUDA events.  Its 17 metrics (``_METRIC_KEYS``)
+the phases are timed by CUDA events (device-timed spans,
+``utils/profiling``).  Its 17 metrics (``_METRIC_KEYS``)
 leave in one tensor, copied to pinned host memory behind an event.  The
 loop is pipelined as the JAX runner's (``gennbv_tpu/algo/runner.py``,
 ``runner.pipeline_depth``): up to `depth` dispatched iterations wait in
@@ -139,7 +140,6 @@ class Runner:
         self.ckpt: Optional[CheckpointManager] = None
         self.obs_dtype = (torch.bfloat16 if cfg.runner.obs_dtype == "bfloat16"
                           else torch.float32)
-        self.timer = profiling.PhaseTimer(events=True)
 
         # rolling 100-episode stats (env_train_base.py:629-639)
         self._rew_buffer: deque = deque(maxlen=100)
@@ -154,17 +154,18 @@ class Runner:
         """Collect -> GAE -> flatten -> update, enqueued on the device
         without a host wait (the first call also captures the update's
         step).  Returns (env_state', obs', the metrics of ``_METRIC_KEYS``
-        as one float32 device tensor); the timer holds the phases' CUDA
-        events (on the CPU their seconds)."""
+        as one float32 device tensor).  Its phases are device-timed spans
+        of unit ``iteration + 1``, which ``profiling.phases`` hands over
+        (CUDA events; on the CPU their seconds)."""
         cfg = self.cfg.ppo
-        timer, dev = self.timer, self.device
-        timer.reset()
-        with timer.phase("rollout", dev):
+        dev, unit = self.device, self.iteration + 1
+        profiling.phases(unit)      # what an earlier call left untaken
+        with profiling.span("rollout", unit, dev):
             env_state, obs, batch, stats = rollout.collect(
                 self.env, self.policy, env_state, obs, self.generator,
                 cfg.n_steps, cfg.gamma, self.obs_dtype, **self._place(),
                 out=self._rollout)
-        with timer.phase("gae", dev):
+        with profiling.span("gae", unit, dev):
             adv, ret = gae.compute_gae(
                 batch.rewards, batch.values, batch.dones.float(),
                 batch.last_values, cfg.gamma, cfg.gae_lambda, out=self._gae)
@@ -175,7 +176,7 @@ class Runner:
         def flat(x):
             return x.reshape((t * n,) + x.shape[2:])
 
-        with timer.phase("update", dev):
+        with profiling.span("update", unit, dev):
             self.opt_state, upd = ppo.update(
                 self.policy, self.opt, cfg, self.opt_state,
                 flat(batch.obs), flat(batch.actions), flat(batch.log_probs),
@@ -266,8 +267,9 @@ class Runner:
                     slot.done.synchronize()
             self.global_step += steps_per_iter
             self.iteration += 1
-            pending.append(_Pending(slot, self.timer.take(), self.iteration,
-                                    self.global_step, t0))
+            profiling.count("runner/iterations")
+            pending.append(_Pending(slot, profiling.phases(self.iteration),
+                                    self.iteration, self.global_step, t0))
             if len(pending) > depth:
                 last_metrics = self._process_iter(pending.popleft())
         while pending:
@@ -279,11 +281,12 @@ class Runner:
 
     def _dispatch(self, i: int, env_state, obs):
         """``train_iteration``, then ``_keep`` into ring slot `i`: all an
-        iteration enqueues, marked ``runner/dispatch`` in a trace.
-        Returns (env_state', obs', the slot)."""
-        with torch.profiler.record_function("runner/dispatch"):
+        iteration enqueues, the span ``runner/dispatch`` of unit
+        ``iteration + 1``.  Returns (env_state', obs', the slot)."""
+        with profiling.span("runner/dispatch", self.iteration + 1):
             env_state, obs, packed = self.train_iteration(env_state, obs)
-            return env_state, obs, self._keep(i, packed)
+            with profiling.span("runner/keep"):
+                return env_state, obs, self._keep(i, packed)
 
     def _keep(self, i: int, packed: torch.Tensor) -> "_Slot":
         """Copies the iteration just dispatched into slot `i` of the ring
@@ -324,13 +327,18 @@ class Runner:
         """Host-side post-processing of one finished iteration: the single
         packed metric fetch (the one wait for the device), rolling stats,
         periodic eval, logging and checkpointing, on its snapshot.  Runs
-        while the next dispatched iterations execute on the device."""
+        while the next dispatched iterations execute on the device: the
+        spans ``runner/fetch`` (the wait) and ``runner/process``."""
+        with profiling.span("runner/fetch", entry.iteration):
+            if entry.slot.done is not None:
+                entry.slot.done.synchronize()
+        with profiling.span("runner/process", entry.iteration):
+            return self._processed(entry)
+
+    def _processed(self, entry: "_Pending") -> dict:
         cfg = self.cfg
         iteration, global_step = entry.iteration, entry.global_step
         slot = entry.slot
-        if slot.done is not None:
-            with torch.profiler.record_function("runner/fetch"):
-                slot.done.synchronize()
         metrics = dict(zip(_METRIC_KEYS, slot.metrics.tolist()))
         # the spacing of fetch completions (the t0 span would count the
         # whole queue); the first processed iteration takes its own span
@@ -500,10 +508,11 @@ class _Slot(NamedTuple):
 
 
 class _Pending(NamedTuple):
-    """A dispatched iteration awaiting its fetch: its slot, its phases'
-    timer, and its iteration, global step and dispatch start."""
+    """A dispatched iteration awaiting its fetch: its slot, its
+    device-timed phases, and its iteration, global step and dispatch
+    start."""
     slot: _Slot
-    phases: profiling.PhaseTimer
+    phases: profiling.Phases
     iteration: int
     global_step: int
     t0: float

@@ -29,7 +29,7 @@ Reference semantics kept (env_train_gennbv.py, env_train_base.py):
 Where the JAX package takes its batched splat path (``zbuf_impl="pallas"``,
 survivor compaction or a row band split at this camera height), so does
 the port: fresh envs are masked out of the splat and their products come
-from the per-scene init-view cache (``_splat_step``).  That is all those
+from the per-scene init-view cache (``_render``, ``_map``).  That is all those
 settings select here: the splat itself runs the fused CUDA kernel on a
 CUDA device and its plain version on the CPU on either path
 (``ops/splat.py``); the JAX compaction and banding are bit-identical to
@@ -46,6 +46,7 @@ from gennbv_tpu_torch.config import EXTERNAL_DEPTH_MODES, EnvConfig
 from gennbv_tpu_torch.env import scene as scene_lib
 from gennbv_tpu_torch.ops import (backproject, camera, carve, fp32, render,
                                   splat, voxel)
+from gennbv_tpu_torch.utils import profiling
 
 
 class EnvState(NamedTuple):
@@ -163,41 +164,64 @@ class ReconEnv:
         return self.step(state, actions)
 
     # ------------------------------------------------------------------
-    def _splat_step(self, scene_id, poses, fresh):
-        """Render + mapping products for all envs: (hit_grid [N, G, G, G],
-        traversed [N, G, G, G], gray [N, rgb_h, rgb_w]).  On the batched
-        path, fresh envs [N] bool took the forced init view: their splat is
-        masked out, and their products come from the per-scene cache."""
-        if not self._use_init_cache:
-            return self._splat_products(scene_id, poses)
-        hit, trav, gray = self._splat_products(scene_id, poses, skip_env=fresh)
-        c_hit, c_trav, c_gray = self._init_cache
-        f1 = fresh[:, None, None, None]
-        hit = torch.where(f1, c_hit[scene_id].to(hit.dtype), hit)
-        trav = torch.where(f1, c_trav[scene_id].to(trav.dtype), trav)
-        gray = torch.where(fresh[:, None, None], c_gray[scene_id], gray)
-        return hit, trav, gray
-
-    def _splat_products(self, scene_id, poses, skip_env=None):
-        """Splat, hits, carve and grayscale frame of every env, with the
-        points of the envs in skip_env [N] bool masked out."""
+    def _render(self, scene_id, poses, fresh):
+        """The step's depth and grayscale frame: (view, gray [N, rgb_h,
+        rgb_w]), `view` what ``_map`` takes.  The splat's view is (r_c2w,
+        t_c2w, zbuf [N, H*W], visible [N, Q]); the other sources' (r_c2w,
+        t_c2w, depth [N, H*W], foreground [N, H*W]).  On the batched splat
+        path, fresh envs [N] bool took the forced init view: their splat
+        is masked out, and their frame comes from the per-scene cache."""
         cfg = self.cfg
-        sc = self.scenes
         h, w = cfg.camera.height, cfg.camera.width
         r_c2w, t_c2w = camera.pose_to_c2w(poses, cfg.camera.z_offset)
+        if cfg.renderer.mode == "splat":
+            depth, mask = self._splat(
+                scene_id, r_c2w, t_c2w,
+                fresh if self._use_init_cache else None)
+        elif cfg.renderer.mode == "dda":
+            sc = self.scenes
+            depth, mask = render.render_depth(
+                sc.render_occ[scene_id], sc.box_lo[scene_id],
+                sc.box_hi[scene_id], self.cam_rays, r_c2w, t_c2w,
+                sc.grid_res, 3 * sc.grid_res, cfg.camera.depth_max)
+        else:
+            depth, mask = self.depth_source.render_batch(scene_id, poses)
+        gray = camera.depth_to_grayscale(depth.reshape(-1, h, w),
+                                         cfg.camera.depth_max, cfg.rgb_h,
+                                         cfg.rgb_w)
+        if self._use_init_cache:
+            gray = torch.where(fresh[:, None, None],
+                               self._init_cache[2][scene_id], gray)
+        return (r_c2w, t_c2w, depth, mask), gray
+
+    def _splat(self, scene_id, r_c2w, t_c2w, skip_env=None):
+        """The surface splat of every env, with the points of the envs in
+        skip_env [N] bool masked out: (zbuf [N, H*W], visible [N, Q])."""
+        cfg = self.cfg
+        sc = self.scenes
         # visibility slack: the mean render-voxel size
         veps = fp32.mean3_of_scaled(sc.box_hi[scene_id] - sc.box_lo[scene_id],
                                     sc.grid_res)
         zbuf, _, visible = splat.splat_depth_batch(
             sc.surf_pts[scene_id], sc.surf_mask[scene_id], self.intrinsics,
-            r_c2w, t_c2w, h, w, cfg.camera.depth_max, veps,
-            cfg.renderer.footprint, skip_env=skip_env,
-            zbuf_impl=cfg.renderer.zbuf_impl)
-        hit, trav = self._hits_carve(scene_id, r_c2w, t_c2w, zbuf, visible)
-        gray = camera.depth_to_grayscale(zbuf.reshape(-1, h, w),
-                                         cfg.camera.depth_max, cfg.rgb_h,
-                                         cfg.rgb_w)
-        return hit, trav, gray
+            r_c2w, t_c2w, cfg.camera.height, cfg.camera.width,
+            cfg.camera.depth_max, veps, cfg.renderer.footprint,
+            skip_env=skip_env, zbuf_impl=cfg.renderer.zbuf_impl)
+        return zbuf, visible
+
+    def _map(self, scene_id, poses, fresh, view):
+        """The mapping products of a ``_render`` view: (hit_grid [N, G, G,
+        G], traversed [N, G, G, G]), fresh envs' from the init-view cache
+        on the batched splat path."""
+        if self.cfg.renderer.mode == "splat":
+            hit, trav = self._hits_carve(scene_id, *view)
+            if self._use_init_cache:
+                c_hit, c_trav, _ = self._init_cache
+                f1 = fresh[:, None, None, None]
+                hit = torch.where(f1, c_hit[scene_id].to(hit.dtype), hit)
+                trav = torch.where(f1, c_trav[scene_id].to(trav.dtype), trav)
+            return hit, trav
+        return self._depth_map(scene_id, poses, *view)
 
     def _hits_carve(self, scene_id, r_c2w, t_c2w, zbuf, visible):
         """Visible surface points -> hit grid; z-test carve mask.  Both
@@ -218,24 +242,16 @@ class ReconEnv:
             0.5 * fp32.mean3(vsize), cfg.camera.depth_max).reshape(-1, g, g, g)
         return hit_grid, traversed
 
-    def _depth_products(self, scene_id, poses):
-        """The "dda", "replay" and "callback" steps' products: (hit_grid
-        [N, G, G, G], traversed [N, G, G, G], gray [N, rgb_h, rgb_w])."""
+    def _depth_map(self, scene_id, poses, r_c2w, t_c2w, depth, fg):
+        """The "dda", "replay" and "callback" steps' mapping: every
+        foreground pixel's world point a hit, then the carve: (hit_grid
+        [N, G, G, G], traversed [N, G, G, G])."""
         cfg = self.cfg
         sc = self.scenes
         g = sc.grid_size
         h, w = cfg.camera.height, cfg.camera.width
-        r_c2w, t_c2w = camera.pose_to_c2w(poses, cfg.camera.z_offset)
-        if cfg.renderer.mode == "dda":
-            depth, fg = render.render_depth(
-                sc.render_occ[scene_id], sc.box_lo[scene_id],
-                sc.box_hi[scene_id], self.cam_rays, r_c2w, t_c2w,
-                sc.grid_res, 3 * sc.grid_res, cfg.camera.depth_max)
-        else:
-            depth, fg = self.depth_source.render_batch(scene_id, poses)
         range_gt = sc.range_gt[scene_id]
         vsize = sc.voxel_size[scene_id]
-        # every foreground pixel's world point is a mapping hit
         pts, valid = backproject.backproject(depth, fg, self.cam_rays,
                                              r_c2w, t_c2w)
         idx, in_bounds = voxel.points_to_voxel_idx(pts, valid, range_gt, vsize)
@@ -249,10 +265,7 @@ class ReconEnv:
                 centers, depth.reshape(-1, h, w), self.intrinsics, r_c2w,
                 t_c2w, 0.5 * fp32.mean3(vsize),
                 fg=fg.reshape(-1, h, w)).reshape(-1, g, g, g)
-        gray = camera.depth_to_grayscale(depth.reshape(-1, h, w),
-                                         cfg.camera.depth_max, cfg.rgb_h,
-                                         cfg.rgb_w)
-        return hit_grid, traversed, gray
+        return hit_grid, traversed
 
     def _build_init_step_cache(self):
         """Splat + hits/carve of the forced init view of every scene:
@@ -264,36 +277,54 @@ class ReconEnv:
         pose = self.init_action.float() * self.action_unit + self.pose_low
         poses = pose.expand(s, spec.ACTION_DIM)
         sid = torch.arange(s, device=self.device)
-        hit, trav, gray = self._splat_products(sid, poses)
+        cfg = self.cfg
+        r_c2w, t_c2w = camera.pose_to_c2w(poses, cfg.camera.z_offset)
+        zbuf, visible = self._splat(sid, r_c2w, t_c2w)
+        hit, trav = self._hits_carve(sid, r_c2w, t_c2w, zbuf, visible)
+        gray = camera.depth_to_grayscale(
+            zbuf.reshape(-1, cfg.camera.height, cfg.camera.width),
+            cfg.camera.depth_max, cfg.rgb_h, cfg.rgb_w)
         return hit > 0.5, trav > 0.5, gray
 
     # ------------------------------------------------------------------
     def step(self, state: EnvState, actions: torch.Tensor):
-        """actions: [N, 6] discrete pose indices."""
-        cfg = self.cfg
+        """actions: [N, 6] discrete pose indices.  The span ``env/step``
+        (``env/render``, ``env/map``, ``env/reward``), counted in
+        ``env/steps`` and, by its envs, ``env/env_steps``."""
         n = state.episode_len.shape[0]
+        profiling.count("env/steps")
+        profiling.count("env/env_steps", n)
+        with profiling.span("env/step"):
+            # clip + force init action on freshly-reset envs
+            actions = torch.clamp(actions.to(self.device, torch.int32),
+                                  torch.zeros_like(self.nvec), self.nvec - 1)
+            fresh = (state.episode_len == 0)[:, None]
+            actions = torch.where(fresh, self.init_action, actions)
+            # index * unit + low, one fused multiply-add as in the reference
+            poses = fp32.fma(actions.float(), self.action_unit, self.pose_low)
+            with profiling.span("env/render"):
+                view, gray = self._render(state.scene_id, poses, fresh[:, 0])
+            with profiling.span("env/map"):
+                sc = self.scenes
+                hit_grid, traversed = self._map(state.scene_id, poses,
+                                                fresh[:, 0], view)
+                prob_grid = carve.update_prob_grid(state.prob_grid, hit_grid,
+                                                   traversed)
+                tri = voxel.tri_cls(prob_grid)
+                scanned_gt, ratio = voxel.coverage_update(
+                    state.scanned_gt, hit_grid, sc.grid_gt[state.scene_id],
+                    sc.num_valid_voxel[state.scene_id])
+            with profiling.span("env/reward"):
+                return self._reward(state, poses, prob_grid, tri, scanned_gt,
+                                    ratio, gray)
 
-        # clip + force init action on freshly-reset envs
-        actions = torch.clamp(actions.to(self.device, torch.int32),
-                              torch.zeros_like(self.nvec), self.nvec - 1)
-        fresh = (state.episode_len == 0)[:, None]
-        actions = torch.where(fresh, self.init_action, actions)
-        # index * unit + low, one fused multiply-add as in the reference
-        poses = fp32.fma(actions.float(), self.action_unit, self.pose_low)
-        episode_len = state.episode_len + 1
-
-        if cfg.renderer.mode == "splat":
-            hit_grid, traversed, gray = self._splat_step(
-                state.scene_id, poses, fresh[:, 0])
-        else:
-            hit_grid, traversed, gray = self._depth_products(state.scene_id,
-                                                             poses)
+    def _reward(self, state, poses, prob_grid, tri, scanned_gt, ratio, gray):
+        """Collision, the observation buffers, reward, termination, the
+        PRE-reset observation and the auto-reset: (state', StepOutput)."""
+        cfg = self.cfg
         sc = self.scenes
-        prob_grid = carve.update_prob_grid(state.prob_grid, hit_grid, traversed)
-        tri = voxel.tri_cls(prob_grid)
-        scanned_gt, ratio = voxel.coverage_update(
-            state.scanned_gt, hit_grid, sc.grid_gt[state.scene_id],
-            sc.num_valid_voxel[state.scene_id])
+        n = state.episode_len.shape[0]
+        episode_len = state.episode_len + 1
         collision = render.check_collision_batch(
             sc.render_occ, sc.box_lo, sc.box_hi, state.scene_id, poses[:, :3],
             cfg.collision_radius, sc.grid_res)

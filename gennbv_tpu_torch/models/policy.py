@@ -23,6 +23,7 @@ from gennbv_tpu_torch.config import ModelConfig
 from gennbv_tpu_torch.models import distributions
 from gennbv_tpu_torch.models.encoder import BatchNorm, HybridEncoder
 from gennbv_tpu_torch.ops import fp32
+from gennbv_tpu_torch.utils import profiling
 
 
 class PolicyOutput(NamedTuple):
@@ -59,9 +60,12 @@ class ActorCriticPolicy(nn.Module):
             nn.init.zeros_(head.bias)
 
     def forward(self, obs: torch.Tensor) -> PolicyOutput:
-        feat = self.encoder(obs)
-        return PolicyOutput(logits=self.action_net(feat),
-                            value=self.value_net(feat)[..., 0])
+        """The span ``policy/forward``, counted in ``policy/forwards``."""
+        profiling.count("policy/forwards")
+        with profiling.span("policy/forward"):
+            feat = self.encoder(obs)
+            return PolicyOutput(logits=self.action_net(feat),
+                                value=self.value_net(feat)[..., 0])
 
     @torch.no_grad()
     def act(self, obs: torch.Tensor, generator: Optional[torch.Generator] = None,

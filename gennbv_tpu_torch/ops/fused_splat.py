@@ -36,6 +36,7 @@ import functools
 import torch
 
 from gennbv_tpu_torch.ops import _cuda, splat
+from gennbv_tpu_torch.utils import profiling
 from gennbv_tpu_torch.utils.work import count_kernel
 
 
@@ -122,8 +123,8 @@ def zbuf_visible(vic, uic, z, ok, voxel_eps, height: int, width: int,
                  depth_max: float, footprint: int = 1):
     """vic/uic [N, Q] int32 in-range pixel coordinates, z [N, Q] float32,
     ok [N, Q] bool, voxel_eps [N] float32 -> (zbuf [N, H*W] float32,
-    visible [N, Q] bool).  Counts its kernel launches in
-    ``zbuf_visible.launches``."""
+    visible [N, Q] bool).  Counts its kernel launches in the counter
+    ``kernel/zbuf_visible/launches``."""
     _check(vic, uic, z, ok, voxel_eps)
     if z.device.type == "cpu":
         return zbuf_visible_ref(vic, uic, z, ok, voxel_eps, height, width,
@@ -132,9 +133,6 @@ def zbuf_visible(vic, uic, z, ok, voxel_eps, height: int, width: int,
         raise ValueError(f"zbuf_visible: no kernel for device {z.device}")
     return launch(vic, uic, z, ok, voxel_eps, height, width, depth_max,
                   footprint, cluster_ctas(height, width, footprint))
-
-
-zbuf_visible.launches = 0
 
 
 def launch(vic, uic, z, ok, voxel_eps, height: int, width: int,
@@ -159,7 +157,7 @@ def launch(vic, uic, z, ok, voxel_eps, height: int, width: int,
                        n, q, height, width, footprint, depth_max, ctas)
     if err != 0:
         raise RuntimeError(f"zbuf_visible kernel launch failed: CUDA error {err}")
-    zbuf_visible.launches += 1
+    profiling.count("kernel/zbuf_visible/launches")
     count_kernel(work, vic, uic, z, ok, voxel_eps, height, width)
     return zbuf, visible
 

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from gennbv_tpu_torch.ops import _cuda
+from gennbv_tpu_torch.utils import profiling
 from gennbv_tpu_torch.utils.work import count_kernel
 
 
@@ -117,8 +118,8 @@ def _check(img: torch.Tensor, vi: torch.Tensor, ui: torch.Tensor) -> None:
 def gather_image(img: torch.Tensor, vi: torch.Tensor,
                  ui: torch.Tensor) -> torch.Tensor:
     """img [N, H, W] float32 and in-range vi/ui [N, Q] int32 -> [N, Q]
-    float32 ``bf16(img[n, vi, ui])``.  Counts its kernel launches in
-    ``gather_image.launches``."""
+    float32 ``bf16(img[n, vi, ui])``.  Counts its kernel launches in the
+    counter ``kernel/gather_image/launches``."""
     _check(img, vi, ui)
     # the kernel's case first, tested without building device objects
     if img.is_cuda and vi.is_cuda and ui.is_cuda \
@@ -131,9 +132,6 @@ def gather_image(img: torch.Tensor, vi: torch.Tensor,
     if device.type == "cpu":
         return gather_image_ref(img, vi, ui)
     raise ValueError(f"gather_image: no kernel for device {device}")
-
-
-gather_image.launches = 0
 
 
 def _launch(img: torch.Tensor, vi: torch.Tensor, ui: torch.Tensor) -> torch.Tensor:
@@ -150,7 +148,7 @@ def _launch(img: torch.Tensor, vi: torch.Tensor, ui: torch.Tensor) -> torch.Tens
                        out.data_ptr(), n, q, h, w, width)
     if err != 0:
         raise RuntimeError(f"gather_image kernel launch failed: CUDA error {err}")
-    gather_image.launches += 1
+    profiling.count("kernel/gather_image/launches")
     count_kernel(work, img, vi, ui)
     return out
 

@@ -1,9 +1,11 @@
 """The port's hand-written CUDA kernels by name, and their launch counts:
-each wrapper adds one to its ``launches`` attribute where it launches its
-kernel, and nowhere else."""
+each wrapper adds one to its counter ``kernel/<name>/launches``
+(``utils/profiling.count``) where it launches its kernel, and nowhere
+else."""
 from __future__ import annotations
 
 from gennbv_tpu_torch.ops import fused_splat, gather, scatter, zbuf_scatter
+from gennbv_tpu_torch.utils import profiling
 
 WRAPPERS = {
     "gather_image": gather.gather_image,
@@ -15,9 +17,10 @@ WRAPPERS = {
 
 def launches() -> dict:
     """Each kernel's launches since its count was last reset."""
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    counts = profiling.counters("kernel/")
+    return {name: counts.get(f"kernel/{name}/launches", 0)
+            for name in WRAPPERS}
 
 
 def reset_launches() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    profiling.reset_counters("kernel/")

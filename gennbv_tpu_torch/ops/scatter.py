@@ -22,6 +22,7 @@ import functools
 import torch
 
 from gennbv_tpu_torch.ops import _cuda
+from gennbv_tpu_torch.utils import profiling
 from gennbv_tpu_torch.utils.work import count_kernel
 
 
@@ -78,9 +79,9 @@ def flag_bytes(g: int) -> int:
 def scatter_cells_any(idx: torch.Tensor, valid: torch.Tensor,
                       g: int) -> torch.Tensor:
     """idx [N, P, 3] int32 in [0, G), valid [N, P] bool -> [N, G, G, G]
-    float32 any-hit grid.  Counts its kernel launches in
-    ``scatter_cells_any.launches``.  The kernel writes every cell, so the
-    grid is not zeroed first."""
+    float32 any-hit grid.  Counts its kernel launches in the counter
+    ``kernel/scatter_cells_any/launches``.  The kernel writes every cell,
+    so the grid is not zeroed first."""
     _check(idx, valid)
     if idx.device.type == "cpu":
         return scatter_cells_any_ref(idx, valid, g)
@@ -96,12 +97,9 @@ def scatter_cells_any(idx: torch.Tensor, valid: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"scatter_cells_any kernel launch failed: CUDA "
                            f"error {err}")
-    scatter_cells_any.launches += 1
+    profiling.count("kernel/scatter_cells_any/launches")
     count_kernel(work, idx, valid, g)
     return grid
-
-
-scatter_cells_any.launches = 0
 
 
 @functools.cache

@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from gennbv_tpu_torch.ops import _cuda
+from gennbv_tpu_torch.utils import profiling
 from gennbv_tpu_torch.utils.work import count_kernel
 
 # shared memory a pixel of a band takes: one uint32 key
@@ -152,8 +153,8 @@ def zbuf_scatter_min(flat: torch.Tensor, zz: torch.Tensor, height: int,
     """flat [N, Q] int32 pixel indices in [0, H*W) (``v * W + u``, no env
     offset), zz [N, Q] float32 -> [N, H, W] float32, each pixel the
     minimum of `fill` and the zz that land on it.  Counts its kernel
-    launches in ``zbuf_scatter_min.launches``.  The kernel writes every
-    pixel, so the image is not filled first."""
+    launches in the counter ``kernel/zbuf_scatter_min/launches``.  The
+    kernel writes every pixel, so the image is not filled first."""
     _check(flat, zz)
     if flat.device.type == "cpu":
         return zbuf_scatter_min_ref(flat, zz, height, width, fill)
@@ -165,9 +166,6 @@ def zbuf_scatter_min(flat: torch.Tensor, zz: torch.Tensor, height: int,
                            device=flat.device)
     return launch(flat, zz, height, width, fill,
                   geometry(n, q, height, width, sm_count(flat.get_device())))
-
-
-zbuf_scatter_min.launches = 0
 
 
 def launch(flat: torch.Tensor, zz: torch.Tensor, height: int, width: int,
@@ -183,7 +181,7 @@ def launch(flat: torch.Tensor, zz: torch.Tensor, height: int, width: int,
     if err != 0:
         raise RuntimeError(f"zbuf_scatter_min kernel launch failed: CUDA "
                            f"error {err}")
-    zbuf_scatter_min.launches += 1
+    profiling.count("kernel/zbuf_scatter_min/launches")
     count_kernel(work, flat, zz, height, width)
     return out
 

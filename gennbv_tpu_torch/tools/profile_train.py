@@ -5,8 +5,8 @@ Prints the wall-clock of the scene build, the env step (first call, then
 3 steps), the rollout collect (128 steps), the 5-epoch PPO update and the
 whole training iteration (first, then 3 in a row), each first call apart
 from the steady state, to locate where an iteration's time goes.  Each
-phase is timed by ``utils/profiling.PhaseTimer``, fenced by
-``torch.cuda.synchronize()`` on the card.
+phase is a device-timed span (``utils/profiling.span``: CUDA events on
+the card, read before the next phase starts).
 
 Usage: python -m gennbv_tpu_torch.tools.profile_train [num_envs] [cam] [res]
        [--device cpu]
@@ -23,7 +23,7 @@ from gennbv_tpu_torch.algo.runner import Runner
 from gennbv_tpu_torch.config import (CameraConfig, Config, EnvConfig,
                                      PPOConfig, RendererConfig, RunnerConfig,
                                      SceneConfig)
-from gennbv_tpu_torch.utils.profiling import PhaseTimer
+from gennbv_tpu_torch.utils import profiling
 
 
 def main(argv=None) -> dict:
@@ -47,13 +47,14 @@ def main(argv=None) -> dict:
     )
     print(f"device={dev} num_envs={n} cam={args.cam} res={args.res}",
           flush=True)
-    timer = PhaseTimer()
+    seconds: dict = {}
 
     @contextlib.contextmanager
     def phase(name: str, msg: str):
-        with timer.phase(name, dev):
+        with profiling.span(name, "profile_train", dev):
             yield
-        print(f"[{timer.metrics()[f'time/{name}']:8.2f}s] {msg}", flush=True)
+        seconds.update(profiling.phases("profile_train").metrics())
+        print(f"[{seconds[f'time/{name}']:8.2f}s] {msg}", flush=True)
 
     with phase("scene_build", "Runner init (scene build)"):
         runner = Runner(cfg, device=dev)
@@ -101,10 +102,9 @@ def main(argv=None) -> dict:
     with phase("iteration", "train iteration x3 steady-state"):
         for _ in range(3):
             env_state, obs, _ = runner.train_iteration(env_state, obs)
-    out = timer.metrics()
-    out["iteration_fps"] = 3 * m / out["time/iteration"]
-    print(f"  -> {out['iteration_fps']:,.0f} env-steps/s", flush=True)
-    return out
+    seconds["iteration_fps"] = 3 * m / seconds["time/iteration"]
+    print(f"  -> {seconds['iteration_fps']:,.0f} env-steps/s", flush=True)
+    return seconds
 
 
 if __name__ == "__main__":

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from gennbv_tpu_torch.ops import kernels
+
 
 @pytest.fixture
 def cuda():
@@ -55,10 +57,10 @@ def test_scatter_kernel_equals_plain(cuda, g, q):
                         generator=gen)
     valid = torch.rand(3, q, device="cuda", generator=gen) < 0.5
     valid[2] = False                              # an env with no valid point
-    before = scatter.scatter_cells_any.launches
+    before = kernels.launches()["scatter_cells_any"]
     got = scatter.scatter_cells_any(idx, valid, g)
     torch.cuda.synchronize()
-    assert scatter.scatter_cells_any.launches == before + 1
+    assert kernels.launches()["scatter_cells_any"] == before + 1
     assert torch.equal(got, scatter.scatter_cells_any_ref(idx, valid, g))
     assert got[2].sum() == 0 and got[0].sum() > 0
 
@@ -82,10 +84,10 @@ def test_scatter_kernel_all_valid_and_one_cell(cuda, g, q):
     idx[2] = torch.stack([cell // g ** 2, cell // g % g, cell % g], -1).int()
     # garbage where the grid will be allocated, so an unwritten cell shows
     torch.full((3, g, g, g), 7.0, device="cuda")
-    before = scatter.scatter_cells_any.launches
+    before = kernels.launches()["scatter_cells_any"]
     got = scatter.scatter_cells_any(idx, valid, g)
     torch.cuda.synchronize()
-    assert scatter.scatter_cells_any.launches == before + 1
+    assert kernels.launches()["scatter_cells_any"] == before + 1
     assert torch.equal(got, scatter.scatter_cells_any_ref(idx, valid, g))
     assert got[1].sum() == (q > 0)
     assert got[2].sum() == min(q, g ** 3)
@@ -95,10 +97,58 @@ def test_scatter_kernel_refuses_a_grid_no_cta_holds(cuda):
     from gennbv_tpu_torch.ops import scatter
     idx = torch.zeros(2, 10, 3, dtype=torch.int32, device="cuda")
     valid = torch.ones(2, 10, dtype=torch.bool, device="cuda")
-    before = scatter.scatter_cells_any.launches
+    before = kernels.launches()["scatter_cells_any"]
     with pytest.raises(ValueError):
         scatter.scatter_cells_any(idx, valid, 62)
-    assert scatter.scatter_cells_any.launches == before
+    assert kernels.launches()["scatter_cells_any"] == before
+
+
+def test_span_brackets_its_kernel_on_the_profilers_clock(cuda):
+    """A span around one ``zbuf_visible`` call and a synchronize, under a
+    device-only profile as the benchmark takes it, lies around the
+    kernel's device record: device records and spans share one clock."""
+    import time
+
+    from torch.autograd import DeviceType
+
+    from gennbv_tpu_torch.ops import fused_splat
+    from gennbv_tpu_torch.utils import profiling
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n, q, h, w = 50, 9216, 400, 400
+    vic = torch.randint(0, h, (n, q), device="cuda", dtype=torch.int32,
+                        generator=gen)
+    uic = torch.randint(0, w, (n, q), device="cuda", dtype=torch.int32,
+                        generator=gen)
+    z = torch.rand(n, q, device="cuda", generator=gen) * 28.0 + 1.0
+    ok = torch.rand(n, q, device="cuda", generator=gen) < 0.7
+    veps = torch.full((n,), 0.15, device="cuda")
+    fused_splat.zbuf_visible(vic, uic, z, ok, veps, h, w, 50.0)  # the build
+    torch.cuda.synchronize()
+
+    def pads():
+        # a session loses device records at its ends (benchmark/trace.py)
+        for _ in range(64):
+            torch.cuda._sleep(50_000)
+        torch.cuda.synchronize()
+
+    t0 = time.time_ns()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        pads()
+        with profiling.span("card/zbuf", unit="card"):
+            fused_splat.zbuf_visible(vic, uic, z, ok, veps, h, w, 50.0)
+            torch.cuda.synchronize()
+        pads()
+    (mine,) = [s for s in profiling.spans()
+               if s.name == "card/zbuf" and s.start_ns >= t0]
+    found = [e for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA
+             and not e.is_user_annotation() and "zbuf_visible" in e.name()]
+    assert len(found) == 1, [e.name() for e in found]
+    kernel = found[0]
+    assert mine.start_ns <= kernel.start_ns() < kernel.end_ns() \
+        <= mine.end_ns, (kernel.start_ns() - mine.start_ns,
+                         mine.end_ns - kernel.end_ns())
 
 
 @pytest.mark.parametrize("h,w,q,footprint", [(16, 16, 40, 1), (64, 48, 700, 1),
@@ -118,10 +168,10 @@ def test_fused_splat_kernel_equals_plain(cuda, h, w, q, footprint):
     uic[1] %= 2
     z[1] = 4.0 + z[1] / 140.0
     veps = torch.tensor([0.15, 0.2, 0.1, 0.17], device="cuda")
-    before = fused_splat.zbuf_visible.launches
+    before = kernels.launches()["zbuf_visible"]
     got = fused_splat.zbuf_visible(vic, uic, z, ok, veps, h, w, 50.0, footprint)
     torch.cuda.synchronize()
-    assert fused_splat.zbuf_visible.launches == before + 1
+    assert kernels.launches()["zbuf_visible"] == before + 1
     want = fused_splat.zbuf_visible_ref(vic, uic, z, ok, veps, h, w, 50.0,
                                         footprint)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -167,12 +217,12 @@ def test_fused_splat_kernel_band_edges(cuda, h, w, footprint, ctas):
     n, q = 3, 40000
     c = fused_splat.cluster_ctas(h, w, footprint) if ctas is None else ctas
     inputs = _band_edge_inputs(n, q, h, w, c, h + w + footprint)
-    before = fused_splat.zbuf_visible.launches
+    before = kernels.launches()["zbuf_visible"]
     got = (fused_splat.zbuf_visible(*inputs, h, w, 50.0, footprint)
            if ctas is None else
            fused_splat.launch(*inputs, h, w, 50.0, footprint, ctas))
     torch.cuda.synchronize()
-    assert fused_splat.zbuf_visible.launches == before + 1
+    assert kernels.launches()["zbuf_visible"] == before + 1
     want = fused_splat.zbuf_visible_ref(*inputs, h, w, 50.0, footprint)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert (got[0][2] == 50.0).all() and not got[1][2].any()
@@ -188,10 +238,10 @@ def test_fused_splat_kernel_without_points_or_envs(cuda, n, q):
     z = torch.ones(n, q, device="cuda")
     ok = torch.ones(n, q, dtype=torch.bool, device="cuda")
     veps = torch.full((n,), 0.1, device="cuda")
-    before = fused_splat.zbuf_visible.launches
+    before = kernels.launches()["zbuf_visible"]
     zbuf, vis = fused_splat.zbuf_visible(vic, vic, z, ok, veps, 400, 400, 50.0)
     torch.cuda.synchronize()
-    assert fused_splat.zbuf_visible.launches == before + (n > 0)
+    assert kernels.launches()["zbuf_visible"] == before + (n > 0)
     assert zbuf.shape == (n, 400 * 400) and vis.shape == (n, q)
     assert (zbuf == 50.0).all()
 
@@ -224,10 +274,10 @@ def test_zbuf_scatter_kernel_equals_plain(cuda, h, w, q):
     flat[3, :2] = torch.tensor([3, 4], dtype=torch.int32)
     zz[3][flat[3] == 3] = -0.0
     zz[3][flat[3] == 4] = 0.0
-    before = zbuf_scatter.zbuf_scatter_min.launches
+    before = kernels.launches()["zbuf_scatter_min"]
     got = zbuf_scatter.zbuf_scatter_min(flat, zz, h, w, 50.0)
     torch.cuda.synchronize()
-    assert zbuf_scatter.zbuf_scatter_min.launches == before + 1
+    assert kernels.launches()["zbuf_scatter_min"] == before + 1
     want = zbuf_scatter.zbuf_scatter_min_ref(flat, zz, h, w, 50.0)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert (got[2] == 50.0).all() and (got[1] < 50.0).sum() <= q - q // 2 + 1
@@ -243,10 +293,10 @@ def test_zbuf_scatter_kernel_without_points_or_envs(cuda, n, q):
     torch.full((max(n, 1), 400, 400), 7.0, device="cuda")   # garbage to reuse
     flat = torch.full((n, q), 400 * 200 + 17, dtype=torch.int32, device="cuda")
     zz = torch.full((n, q), 3.5, device="cuda")
-    before = zbuf_scatter.zbuf_scatter_min.launches
+    before = kernels.launches()["zbuf_scatter_min"]
     got = zbuf_scatter.zbuf_scatter_min(flat, zz, 400, 400, 50.0)
     torch.cuda.synchronize()
-    assert zbuf_scatter.zbuf_scatter_min.launches == before + (n > 0)
+    assert kernels.launches()["zbuf_scatter_min"] == before + (n > 0)
     assert got.shape == (n, 400, 400)
     assert torch.equal(got, zbuf_scatter.zbuf_scatter_min_ref(flat, zz, 400,
                                                               400, 50.0))

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from gennbv_tpu.ops import mxu, pallas_gather
-from gennbv_tpu_torch.ops import gather
+from gennbv_tpu_torch.ops import gather, kernels
 
 
 def _image(rng, n, h, w):
@@ -60,10 +60,11 @@ def test_batched_matches_vmapped_pallas():
     want_mxu = np.asarray(jax.vmap(
         lambda i, v, u: mxu.gather_image(i, v, u, exact=False))(*args))
     np.testing.assert_array_equal(want, want_mxu)
-    before = gather.gather_image.launches
+    before = kernels.launches()["gather_image"]
     got = gather.gather_image(*map(torch.from_numpy, (img, vi, ui)))
     np.testing.assert_array_equal(got.numpy(), want)
-    assert gather.gather_image.launches == before, "the CPU path launches nothing"
+    assert kernels.launches()["gather_image"] == before, \
+        "the CPU path launches nothing"
 
 
 def test_wrapper_rejects_bad_input():

@@ -1,0 +1,257 @@
+"""The port's tracer (``gennbv_tpu_torch/utils/profiling.py``) on the CPU:
+spans off by default and free of the profiler, nested with their parents
+and units when on, on the profiler's clock; the Runner's, the rollout's,
+the env step's and the eval's spans and counters; the kernels' launch
+counts in the one counter store."""
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
+import json
+import os
+import time
+from collections import deque
+
+import pytest
+import torch
+from torch.autograd import DeviceType
+
+from gennbv_tpu_torch import config as pt_config
+from gennbv_tpu_torch.algo import evaluation, runner
+from gennbv_tpu_torch.env import ReconEnv, make_scenes
+from gennbv_tpu_torch.models.policy import ActorCriticPolicy
+from gennbv_tpu_torch.ops import kernels
+from gennbv_tpu_torch.utils import profiling
+
+NARROW = dict(pose_mlp_hidden=32, grid_channels=4, fused_dim=32)
+
+
+def _since(t0: int, name: str | None = None) -> list:
+    return [s for s in profiling.spans()
+            if s.start_ns >= t0 and (name is None or s.name == name)]
+
+
+def _raise(*args, **kwargs):
+    raise AssertionError("record_function entered with tracing off")
+
+
+def test_off_records_nothing_and_never_enters_record_function(monkeypatch):
+    monkeypatch.setattr(profiling._profiler, "record_function", _raise)
+    before = profiling.spans()
+    off = profiling.span("off/a", unit=3)
+    assert off is profiling.span("off/b")          # one shared no-op
+    with off:
+        with profiling.span("off/b"):
+            pass
+    # device-timed spans still time, and record no span either
+    with profiling.span("off/timed", "off-unit", "cpu"):
+        pass
+    assert profiling.phases("off-unit").metrics()["time/off/timed"] >= 0
+    assert profiling.spans() == before
+
+
+def test_on_spans_nest_with_parents_and_units():
+    t0 = time.time_ns()
+    with profiling.tracing():
+        with profiling.span("outer", unit=7):
+            with profiling.span("mid"):
+                with profiling.span("inner"):
+                    pass
+            with profiling.span("sibling", unit=9):
+                pass
+        with profiling.span("alone"):
+            pass
+    got = {s.name: s for s in _since(t0)}
+    assert set(got) == {"outer", "mid", "inner", "sibling", "alone"}
+    assert got["outer"].parent is None and got["alone"].parent is None
+    assert got["mid"].parent == got["outer"].id
+    assert got["inner"].parent == got["mid"].id
+    assert got["sibling"].parent == got["outer"].id
+    assert [got[n].unit for n in ("outer", "mid", "inner", "sibling")] == \
+        [7, 7, 7, 9]
+    assert got["alone"].unit is None
+    for s in got.values():
+        assert s.start_ns <= s.end_ns
+    assert got["outer"].start_ns <= got["mid"].start_ns <= \
+        got["inner"].end_ns <= got["mid"].end_ns <= got["outer"].end_ns
+
+
+def test_ring_drops_the_oldest_and_counts_them(monkeypatch):
+    monkeypatch.setattr(profiling, "_ring", deque(maxlen=3))
+    before = profiling.dropped()
+    with profiling.tracing():
+        for i in range(5):
+            with profiling.span(f"ring/{i}"):
+                pass
+    assert [s.name for s in profiling.spans()] == ["ring/2", "ring/3",
+                                                   "ring/4"]
+    assert profiling.dropped() == before + 2
+
+
+def test_a_span_lies_on_the_profilers_clock():
+    """Under a CPU profile the span enters ``record_function``: its host
+    record and the span's own stamps agree within 100 us (after a first
+    span, which pays the profiler's set-up)."""
+    t0 = time.time_ns()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiling.span("clock/first"):
+            pass
+        with profiling.span("clock/check", unit="clock"):
+            torch.randn(256, 256) @ torch.randn(256, 256)
+    (mine,) = _since(t0, "clock/check")
+    (record,) = [e for e in prof.profiler.kineto_results.events()
+                 if e.name() == "clock/check"
+                 and e.device_type() == DeviceType.CPU]
+    assert abs(record.start_ns() - mine.start_ns) < 100_000
+    assert abs(record.end_ns() - mine.end_ns) < 100_000
+    assert mine.end_ns - mine.start_ns > 0
+
+
+def test_kernel_launches_live_in_the_counter_store():
+    kernels.reset_launches()
+    assert kernels.launches() == dict.fromkeys(kernels.WRAPPERS, 0)
+    profiling.count("kernel/gather_image/launches")
+    profiling.count("kernel/zbuf_visible/launches", 2)
+    assert kernels.launches() == {"gather_image": 1, "scatter_cells_any": 0,
+                                  "zbuf_visible": 2, "zbuf_scatter_min": 0}
+    assert profiling.counters("kernel/")["kernel/zbuf_visible/launches"] == 2
+    kernels.reset_launches()
+    assert set(kernels.launches().values()) == {0}
+    assert not any(hasattr(fn, "launches") for fn in kernels.WRAPPERS.values())
+
+
+def _tiny_cfg(**runner_kw):
+    return pt_config.Config(
+        env=pt_config.EnvConfig(
+            num_envs=4, camera=pt_config.CameraConfig(height=16, width=16),
+            renderer=pt_config.RendererConfig(resolution=16),
+            scene=pt_config.SceneConfig(num_scenes=2, seed=0),
+            max_episode_length=4),
+        model=pt_config.ModelConfig(**NARROW),
+        ppo=pt_config.PPOConfig(n_steps=4, batch_size=8, n_epochs=1,
+                                total_iters=2),
+        runner=pt_config.RunnerConfig(**{"seed": 0, "save_freq": 0,
+                                         **runner_kw}))
+
+
+def test_runner_spans_counters_and_phases(tmp_path):
+    cfg = _tiny_cfg()
+    r = runner.Runner(cfg, log_dir=str(tmp_path / "run"), device="cpu")
+    counts = profiling.counters()
+    t0 = time.time_ns()
+    with profiling.tracing():
+        r.train(2)
+    r.close()
+    after = profiling.counters()
+    n_steps = cfg.ppo.n_steps
+    spans = _since(t0)
+    by_id = {s.id: s for s in spans}
+    steps = [s for s in spans if s.name == "env/step"]
+    in_rollout = [s for s in steps if s.parent in by_id
+                  and by_id[s.parent].name == "rollout/step"]
+    assert len(in_rollout) == 2 * n_steps
+    assert {s.unit for s in in_rollout} == {1, 2}
+    # the call's reset is an env step of no iteration
+    assert [s.unit for s in steps if s not in in_rollout] == [None]
+    assert after["env/steps"] - counts.get("env/steps", 0) == len(steps)
+    assert after["env/env_steps"] - counts.get("env/env_steps", 0) == \
+        4 * len(steps)
+    assert after["runner/iterations"] - counts.get("runner/iterations", 0) == 2
+    for unit in (1, 2):
+        names = {s.name for s in spans if s.unit == unit}
+        assert {"runner/dispatch", "rollout", "gae", "update", "runner/keep",
+                "runner/fetch", "runner/process", "rollout/step",
+                "policy/act", "policy/forward", "env/step", "env/render",
+                "env/map", "env/reward", "rollout/last_value"} <= names
+        dispatch = [s for s in spans if s.unit == unit
+                    and s.name == "runner/dispatch"]
+        assert len(dispatch) == 1 and dispatch[0].parent is None
+        for phase in ("rollout", "gae", "update", "runner/keep"):
+            (s,) = [s for s in spans if s.unit == unit and s.name == phase]
+            assert s.parent == dispatch[0].id
+    # the update's minibatches: eager steps on the CPU, one forward each
+    replays = after["update/replays"] - counts.get("update/replays", 0)
+    assert replays > 0
+    forwards = after["policy/forwards"] - counts.get("policy/forwards", 0)
+    assert forwards == 2 * (n_steps + 1) + replays
+    with open(tmp_path / "run" / "metrics.jsonl") as f:
+        logged = [json.loads(line) for line in f]
+    assert len(logged) == 2
+    for rec in logged:
+        keys = [k for k in rec if k in ("time/rollout", "time/gae",
+                                        "time/update")]
+        assert keys == ["time/rollout", "time/gae", "time/update"]
+        assert all(rec[k] > 0 for k in keys)
+
+
+def test_runner_untraced_records_no_span_and_keeps_its_phases(tmp_path):
+    r = runner.Runner(_tiny_cfg(), log_dir=str(tmp_path / "run"),
+                      device="cpu")
+    t0 = time.time_ns()
+    metrics = r.train(2)
+    r.close()
+    assert _since(t0) == []
+    for phase in ("rollout", "gae", "update"):
+        assert metrics[f"time/{phase}"] > 0
+    assert profiling.phases(1).metrics() == {}
+    assert profiling.phases(2).metrics() == {}
+
+
+def test_profile_dir_trace_holds_the_spans(tmp_path):
+    d = tmp_path / "profile"
+    r = runner.Runner(_tiny_cfg(profile_dir=str(d)),
+                      log_dir=str(tmp_path / "run"), device="cpu")
+    r.train(2)
+    r.close()
+    names = {e.get("name") for e in
+             json.load(open(d / "trace.json"))["traceEvents"]}
+    assert {"runner/dispatch", "rollout", "env/step", "env/render",
+            "policy/forward"} <= names
+    spans = [json.loads(line) for line in open(d / "spans.jsonl")]
+    assert {s["unit"] for s in spans if s["name"] == "runner/dispatch"} == {2}
+
+
+@pytest.mark.parametrize("episodes", [1, 2])
+def test_eval_spans_per_episode(episodes):
+    max_len = 3
+    cfg = pt_config.EnvConfig(
+        num_envs=3, max_episode_length=max_len,
+        camera=pt_config.CameraConfig(height=16, width=16),
+        renderer=pt_config.RendererConfig(resolution=16),
+        scene=pt_config.SceneConfig(num_scenes=3, seed=1))
+    env = ReconEnv(cfg, make_scenes(cfg.scene, 16, "cpu"))
+    policy = ActorCriticPolicy(pt_config.ModelConfig(**NARROW), None, "cpu")
+    counts = profiling.counters()
+    t0 = time.time_ns()
+    with profiling.tracing():
+        for _ in range(episodes):
+            evaluation.evaluate(env, policy, compute_accuracy=False)
+    after = profiling.counters()
+    spans = _since(t0)
+    tops = [s for s in spans if s.name == "eval/episode"]
+    assert len(tops) == episodes and len({s.unit for s in tops}) == episodes
+    assert after["eval/episodes"] - counts.get("eval/episodes", 0) == episodes
+    for top in tops:
+        mine = [s for s in spans if s.unit == top.unit]
+        names = [s.name for s in mine]
+        assert names.count("env/step") == 1 + max_len
+        assert names.count("policy/forward") == max_len
+        assert names.count("eval/step") == max_len
+        for one in ("eval/reset", "eval/fetch", "eval/results"):
+            (s,) = [s for s in mine if s.name == one]
+            assert s.parent == top.id
+        assert all(top.start_ns <= s.start_ns and s.end_ns <= top.end_ns
+                   for s in mine)
+    assert after["env/steps"] - counts.get("env/steps", 0) == \
+        episodes * (1 + max_len)
+    assert after["policy/forwards"] - counts.get("policy/forwards", 0) == \
+        episodes * max_len
+
+
+def test_spans_write_out_only_when_asked(tmp_path):
+    t0 = time.time_ns()
+    with profiling.tracing():
+        with profiling.span("write/me", unit=1):
+            pass
+    path = os.path.join(tmp_path, "spans.jsonl")
+    profiling.write_spans(path, t0)
+    (line,) = [json.loads(x) for x in open(path)]
+    assert line["name"] == "write/me" and line["unit"] == 1

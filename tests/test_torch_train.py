@@ -472,20 +472,24 @@ def test_train_eval_cli(tmp_path, capsys, monkeypatch):
 
 
 def test_phase_timer_and_trace(tmp_path):
-    t = profiling.PhaseTimer()
-    with t.phase("rollout", fence="cpu"):
+    """Device-timed spans (the phase timer) hand a unit's seconds over
+    once; a trace holds the spans of its block."""
+    with profiling.span("rollout", "timer-test", "cpu"):
         torch.arange(1000.0).sum()
-    with t.phase("training"):
+    with profiling.span("training", "timer-test", "cpu"):
         pass
-    m = t.metrics()
+    m = profiling.phases("timer-test").metrics()
     assert sorted(m) == ["time/rollout", "time/training"]
     assert m["time/rollout"] > 0
-    t.reset()
-    assert t.metrics() == {}
+    assert profiling.phases("timer-test").metrics() == {}
     with profiling.trace(None):
         pass
     d = tmp_path / "trace"
     with profiling.trace(str(d)):
-        torch.ones(8).sum()
+        with profiling.span("traced/block"):
+            torch.ones(8).sum()
     assert (d / "trace.json").exists()
-    assert json.load(open(d / "trace.json"))["traceEvents"]
+    events = json.load(open(d / "trace.json"))["traceEvents"]
+    assert any(e.get("name") == "traced/block" for e in events)
+    spans = [json.loads(line) for line in open(d / "spans.jsonl")]
+    assert [s["name"] for s in spans] == ["traced/block"]

@@ -6,7 +6,7 @@
 Phases, in order; any failure raises and the script exits non-zero:
 1. a CUDA card must be present; print its name and power limit, the torch
    version and nvcc's;
-2. build the four kernels from gennbv_tpu_torch/csrc, one nvcc process per
+2. build the five kernels from gennbv_tpu_torch/csrc, one nvcc process per
    source, all started together (each timed), and print what ptxas says
    of each kernel (registers, shared memory, spills);
 3. hold each kernel bit-equal to its plain PyTorch version at the shapes of
@@ -32,6 +32,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      gather;
    - tools/bench_scatter.py's defaults (256 x 11264 at 128x128, its
      numpy draws): the scatter-min z-buffer;
+   - the PPO update's minibatch of 128: the Conv3d weight gradient of
+     the encoder's two layers (the first's input a strided view of the
+     observations, as in the update), which sums in its own fixed order,
+     so it is held to the float64 gradient (within 2^-14 of the sum of
+     the products' magnitudes) and to itself, bit for bit, call to call,
+     at two device launches a call (the partial sums and their
+     reduction), with torch.nn.grad.conv3d_weight under the port's
+     deterministic cuDNN settings as the library call;
    and the gather once more on an image with planted values (bf16 ties,
    -0.0, a negative, empty pixels), and, without timing, at its edge
    cases at both image sizes: q of 1, 3 and 4, a ragged q and index
@@ -310,13 +318,15 @@ from gennbv_tpu_torch.models import actor_critic, gaussian
 from gennbv_tpu_torch.models.actor_critic import GaussianActorCritic
 from gennbv_tpu_torch.models.policy import ActorCriticPolicy
 from gennbv_tpu_torch.models import distributions
-from gennbv_tpu_torch.ops import (_cuda, backproject, camera, carve, fp32,
+from gennbv_tpu_torch.ops import (_cuda, backproject, camera, carve,
+                                  conv3d_wgrad, fp32,
                                   fused_splat, gather, render, scatter, splat,
                                   voxel, zbuf_scatter)
 from gennbv_tpu_torch.ops.kernels import WRAPPERS, launches, reset_launches
 from gennbv_tpu_torch.examples import custom_env_families
 from gennbv_tpu_torch.tools import bench_scatter, convert_dataset, post_run
 from gennbv_tpu_torch.train import play, train_eval_gennbv, train_rsl
+from gennbv_tpu_torch.utils import profiling
 from gennbv_tpu_torch.utils.device import card_line
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -413,17 +423,42 @@ KERNELS = {
                      "gennbv_tpu/ops/pallas_splat.py:80"),
     "zbuf_scatter_min": ("gennbv_tpu_torch/csrc/zbuf_scatter_min.cu",
                          "tools/bench_scatter.py:93"),
+    # no TPU kernel: the JAX encoder's Conv3d gradients are XLA's
+    "conv3d_wgrad": ("gennbv_tpu_torch/csrc/conv3d_wgrad.cu", None),
 }
 assert set(KERNELS) == set(WRAPPERS)
 
 
-# the __global__ function each wrapper launches, once a call (csrc/*.cu)
+# the __global__ function each wrapper launches, once a call (csrc/*.cu;
+# conv3d_wgrad's second launch, its reduction, is WGRAD_REDUCE_FUNCTION)
 PORT_KERNEL_FUNCTIONS = {
     "gather_image": "gather_image_kernel",
     "scatter_cells_any": "scatter_cells_any_kernel",
     "zbuf_visible": "zbuf_visible_cluster_kernel",
     "zbuf_scatter_min": "zbuf_scatter_min_kernel",
+    "conv3d_wgrad": "conv3d_wgrad_partial_kernel",
 }
+WGRAD_REDUCE_FUNCTION = "conv3d_wgrad_reduce_kernel"
+# the conv3d_wgrad wrapper's calls a minibatch step (the encoder's two
+# Conv3d layers), and the eager steps of a Learner on a card before its
+# graph's replays, which launch the kernel without a call
+# (ppo.Learner._capture: two warm-ups and the captured step)
+WGRAD_CALLS_PER_STEP = 2
+EAGER_STEPS_PER_CAPTURE = 3
+# the flagship update's minibatch (ppo.batch_size), phase 3's wgrad shapes
+WGRAD_MINIBATCH = 128
+# the float32 weight gradient against the float64 one: each output is a
+# chain of fewer than 2^10 float32 additions (a chunk's positions, the
+# CTA's parts, a reduce lane's chunks, the lanes), each rounding by at
+# most 2^-24 of the running sum of the products' magnitudes
+WGRAD_REL_TOL = 2.0 ** -14
+
+
+def trained(expect: dict, learners: int = 1) -> dict:
+    """`expect` with conv3d_wgrad's calls in a run whose updates ran on a
+    card under `learners` Learners, each captured once."""
+    return {**expect, "conv3d_wgrad": WGRAD_CALLS_PER_STEP
+            * EAGER_STEPS_PER_CAPTURE * learners}
 
 
 def splat_expect(k: int) -> dict:
@@ -432,7 +467,7 @@ def splat_expect(k: int) -> dict:
     pallas: the fused splat, the hit scatter and the carve gather once a
     step; the exact scatter-min z-buffer never."""
     return {"gather_image": k, "scatter_cells_any": k, "zbuf_visible": k,
-            "zbuf_scatter_min": 0}
+            "zbuf_scatter_min": 0, "conv3d_wgrad": 0}
 
 
 def exact_zbuf_expect(k: int) -> dict:
@@ -440,7 +475,7 @@ def exact_zbuf_expect(k: int) -> dict:
     the scatter-min z-buffer once a step, the gather twice (the visibility
     and the carve), the hit scatter once, the fused splat never."""
     return {"gather_image": 2 * k, "scatter_cells_any": k, "zbuf_visible": 0,
-            "zbuf_scatter_min": k}
+            "zbuf_scatter_min": k, "conv3d_wgrad": 0}
 
 
 def phase_device() -> str:
@@ -754,6 +789,86 @@ def zbuf_scatter_case(label, flat, zz, h, w, fill) -> dict:
         *zbuf_scatter.work(flat, zz, h, w))
 
 
+def wgrad_inputs(n: int, seed: int):
+    """The update's two weight gradients' inputs at a minibatch of n: the
+    first layer's X a strided view of observations with a tri-class grid
+    (as the update slices it), the second's a ReLU's output; dY normal."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    obs = torch.randn(n, spec.OBS_DIM, device="cuda", generator=gen)
+    grid = obs[:, spec.STATE_DIM: spec.STATE_DIM + spec.GRID_DIM]
+    grid.copy_(torch.randint(-1, 2, grid.shape, device="cuda",
+                             generator=gen).float())
+    x1 = grid.reshape(n, 1, G, G, G)
+    g1 = conv3d_wgrad.out_size(G)
+    g2 = conv3d_wgrad.out_size(g1)
+    c = config.ModelConfig().grid_channels
+    x2 = torch.rand(n, c, g1, g1, g1, device="cuda", generator=gen)
+    return ((x1, torch.randn(n, c, g1, g1, g1, device="cuda", generator=gen)),
+            (x2, torch.randn(n, c, g2, g2, g2, device="cuda", generator=gen)))
+
+
+def wgrad_held(label: str, x, dy) -> float:
+    """Raises unless conv3d_wgrad's dW and db lie within WGRAD_REL_TOL of
+    the sum of the products' magnitudes from the float64 gradient, and two
+    calls give the same bits; returns the largest error over that sum."""
+    dw, db = conv3d_wgrad.conv3d_wgrad(x, dy)
+    again = conv3d_wgrad.conv3d_wgrad(x, dy)
+    if not (torch.equal(dw, again[0]) and torch.equal(db, again[1])):
+        raise AssertionError(f"{label}: two calls differ")
+    want = conv3d_wgrad.conv3d_wgrad_ref(x.double(), dy.double())
+    scale = conv3d_wgrad.conv3d_wgrad_ref(x.double().abs(), dy.double().abs())
+    err = max(float(((g.double() - w).abs() / s.clamp_min(1e-300)).max())
+              for g, w, s in zip((dw, db), want, scale))
+    if not err <= WGRAD_REL_TOL:
+        raise AssertionError(f"{label}: {err:.3g} of the magnitudes' sum "
+                             f"from the float64 gradient (limit "
+                             f"{WGRAD_REL_TOL:.3g})")
+    return err
+
+
+def wgrad_case(label: str, x, dy) -> dict:
+    """conv3d_wgrad held (wgrad_held), two device launches a call (its
+    partial sums, then their reduction), timed as _case times a kernel
+    beside the plain version and torch.nn.grad.conv3d_weight under the
+    port's deterministic cuDNN settings (the library)."""
+    fp32.deterministic_fp32()
+    err = wgrad_held(label, x, dy)
+    kernel = lambda: conv3d_wgrad.conv3d_wgrad(x, dy)
+    plain = lambda: conv3d_wgrad.conv3d_wgrad_ref(x, dy)
+    w_shape = (dy.shape[1], x.shape[1], 3, 3, 3)
+    library = lambda: torch.nn.grad.conv3d_weight(x, w_shape, dy, stride=2)
+    per_call, device_ms, names = profile_calls(kernel)
+    fns = (PORT_KERNEL_FUNCTIONS["conv3d_wgrad"], WGRAD_REDUCE_FUNCTION)
+    if per_call != 2 or not all(any(f in n for f in fns) for n in names) \
+            or not all(any(f in n for n in names) for f in fns):
+        raise AssertionError(f"{label}: {per_call} device launches a call "
+                             f"({sorted(names)}), expected {fns} once each")
+    bound_ms, bound_by = _bound(*conv3d_wgrad.work(x, dy))
+    res = {"max_rel_err": err, "ms": _time_ms(kernel),
+           "plain_ms": _time_ms(plain), "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": _time_ms(library),
+           "cold_ms": _time_cold_ms(kernel),
+           "library_cold_ms": _time_cold_ms(library),
+           "cold_dirty_ms": _time_cold_ms(kernel, flush="zero"),
+           "library_cold_dirty_ms": _time_cold_ms(library, flush="zero"),
+           "device_launches_per_call": per_call, "kernel_device_ms": device_ms,
+           "library_device_ms": profile_calls(library)[1],
+           "geometry": conv3d_wgrad.geometry(
+               x.shape[0], dy[0, 0].numel(), x.shape[1], dy.shape[1],
+               zbuf_scatter.sm_count(x.get_device()))._asdict()}
+    print(f"{label}: kernel {res['ms']:.4f} ms (cold {res['cold_ms']:.4f} "
+          f"ms, dirty {res['cold_dirty_ms']:.4f} ms), plain "
+          f"{res['plain_ms']:.4f} ms, library {res['library_ms']:.4f} ms "
+          f"(device {res['library_device_ms']:.4f} ms, cold "
+          f"{res['library_cold_ms']:.4f} ms, dirty "
+          f"{res['library_cold_dirty_ms']:.4f} ms), bound {bound_ms:.4f} ms "
+          f"({bound_by}) (median, CUDA events); {per_call:g} device "
+          f"launches a call, {device_ms:.4f} ms of device time (profiler); "
+          f"{err:.3g} of the magnitudes' sum from float64; geometry "
+          f"{res['geometry']}")
+    return res
+
+
 def exact_zbuf_inputs(vic, uic, z, ok, w, depth_max):
     """What zbuf_scatter_vis_px hands the scatter-min: each point's pixel
     in its env's image and its depth, depth_max where it is not valid."""
@@ -1054,6 +1169,10 @@ def phase_kernels(eval_scenes, rollout_scenes,
           f"{ROLLOUT_Q - 3}, 9215 in one env; 1, 133, 265 envs at {HW}x{HW}, "
           f"{spec.EVAL_NUM_ENVS + 1} at {EVAL_HW}x{EVAL_HW}; 37x53, 401x300, "
           "3000x1; pile-ups on either side of a band edge)")
+    for layer, (x, dy) in enumerate(wgrad_inputs(WGRAD_MINIBATCH, 0), 1):
+        out["conv3d_wgrad"][f"update_conv{layer}"] = wgrad_case(
+            f"update: conv3d_wgrad, layer {layer}: x {list(x.shape)}, dy "
+            f"{list(dy.shape)}", x, dy)
     planted_gather_case(G ** 3)
     paths = [gather_edge_case(*case) for case in GATHER_EDGES]
     print(f"gather_image: bit-equal to the plain version with one device "
@@ -1707,7 +1826,8 @@ def phase_train(card: str, scenes, eval_scenes, log_dir: str) -> dict:
         # setup reset, 128 steps an iteration, one eval (reset + 30 steps;
         # zbuf_impl=mxu builds no init-view cache)
         n_eval = 1 + runner.eval_env.cfg.max_episode_length
-        expect = splat_expect(1 + TRAIN_ITERS * cfg.ppo.n_steps + n_eval)
+        expect = trained(splat_expect(1 + TRAIN_ITERS * cfg.ppo.n_steps
+                                      + n_eval))
         if counts != expect:
             raise AssertionError(f"train launched {counts}, expected {expect}")
         logged = read_logged(log_dir)
@@ -2036,7 +2156,8 @@ def dda_expect(carve_mode: str) -> dict:
     the z-test carve, none with Bresenham's; no splat and no scatter-min
     z-buffer."""
     return {"gather_image": 2 if carve_mode == "ztest" else 0,
-            "scatter_cells_any": 1, "zbuf_visible": 0, "zbuf_scatter_min": 0}
+            "scatter_cells_any": 1, "zbuf_visible": 0, "zbuf_scatter_min": 0,
+            "conv3d_wgrad": 0}
 
 
 def _step_counted(env, state, actions, expect: dict, label: str):
@@ -2334,8 +2455,8 @@ def phase_dataset(card: str, dirs: dict, root: str) -> dict:
                              f"{recorded.get('eval_dataset')!r}")
     # setup reset, 128 steps an iteration, one eval (reset + 30 steps)
     n_steps = recorded["ppo"]["n_steps"]
-    expect = splat_expect(1 + DATASET_ITERS * n_steps + 1
-                          + spec.MAX_EPISODE_LENGTH_EVAL)
+    expect = trained(splat_expect(1 + DATASET_ITERS * n_steps + 1
+                                  + spec.MAX_EPISODE_LENGTH_EVAL))
     if train_counts != expect:
         raise AssertionError(f"dataset training launched {train_counts}, "
                              f"expected {expect}")
@@ -3551,7 +3672,7 @@ def phase_mesh(card: str, scenes) -> dict:
         runner, got, secs = _mesh_iteration(cfg1, scenes)
         counts = launches()
         assert runner.mesh is not None and runner.mesh.env_width == 1
-        expect = splat_expect(1 + MESH_ITERS * cfg.ppo.n_steps)
+        expect = trained(splat_expect(1 + MESH_ITERS * cfg.ppo.n_steps))
         if counts != expect:
             raise AssertionError(f"mesh launched {counts}, expected {expect}")
         for k in _METRIC_KEYS[:9]:
@@ -3693,8 +3814,9 @@ def _exact_zbuf_training(card: str, root: str) -> dict:
             recorded["runner"]["eval_camera"]) != ("scatter", EVAL_HW):
         raise AssertionError(f"exact zbuf training ran {recorded['env']}")
     # setup reset, 128 steps an iteration, one eval (reset + 30 steps)
-    expect = exact_zbuf_expect(1 + EXACT_ITERS * recorded["ppo"]["n_steps"]
-                               + 1 + spec.MAX_EPISODE_LENGTH_EVAL)
+    expect = trained(exact_zbuf_expect(
+        1 + EXACT_ITERS * recorded["ppo"]["n_steps"] + 1
+        + spec.MAX_EPISODE_LENGTH_EVAL))
     if counts != expect:
         raise AssertionError(f"exact zbuf training launched {counts}, "
                              f"expected {expect}")
@@ -3779,22 +3901,31 @@ def phase_exact_zbuf(card: str, scenes, eval_scenes,
 def _bench_window(windows: list):
     """A ``window`` for bench.bench_config: the timed loop under a raw
     profile (_profiled), raising unless each kernel's device launches
-    there equal the bench's own count of the same window; appends each
-    window's (launches, device activities, takes) to `windows`."""
+    there equal the bench's own count of the same window, and the weight
+    gradient's, which the update's graph replays launch without a call,
+    WGRAD_CALLS_PER_STEP a replay; appends each window's (launches, device
+    activities, takes) to `windows`."""
     def window(loop):
-        takes = []
+        takes, replays = [], [0]
 
         def take():
             takes.append(None)
-            return loop()
+            before = profiling.counters("update/").get("update/replays", 0)
+            win = loop()
+            replays[0] = (profiling.counters("update/")["update/replays"]
+                          - before)
+            return win
 
         win, spans = _profiled("bench: timed window", take, raw=True)
         seen = {name: sum(PORT_KERNEL_FUNCTIONS[name] in s.name
                           for s in spans) for name in KERNELS}
-        if seen != win.launches:
+        want = {**win.launches, "conv3d_wgrad": win.launches["conv3d_wgrad"]
+                + WGRAD_CALLS_PER_STEP * replays[0]}
+        if seen != want:
             raise AssertionError(f"bench: the timed window launched {seen} "
                                  f"on the device (profiler), the bench "
-                                 f"counted {win.launches}")
+                                 f"counted {win.launches} and "
+                                 f"{replays[0]} replays")
         windows.append((seen, len(spans), len(takes)))
         return win
     return window
@@ -3851,9 +3982,12 @@ def phase_bench(card: str) -> dict:
                 + phases * (N_STEPS * iters + 4 * iters + 1)
                 for iters, phases, (_, _, takes)
                 in zip((BENCH_ITERS, 2), (True, False), windows))
-    if counts != splat_expect(steps):
-        raise AssertionError(f"bench: launched {counts}, expected "
-                             f"{splat_expect(steps)}")
+    # each leg's Learner is captured once, and its counting pass runs one
+    # more minibatch step eagerly (bench._minibatch_step_work)
+    expect = trained(splat_expect(steps), learners=2)
+    expect["conv3d_wgrad"] += 2 * WGRAD_CALLS_PER_STEP
+    if counts != expect:
+        raise AssertionError(f"bench: launched {counts}, expected {expect}")
     for (seen, spans, takes), leg in zip(windows, ("128x128", "400x400")):
         print(f"bench {leg}: the timed window's kernel launches {seen} equal "
               f"the profiler's, among {spans} device activities ({takes} "
@@ -3950,11 +4084,12 @@ def main() -> None:
             "replaces": replaces,
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
-            # times at the eval's shapes; the rollout's beside them
-            **timing[name]["eval"], **floor,
+            # times at the eval's shapes; the rollout's beside them (the
+            # weight gradient's at the update's, among the paths below)
+            **timing[name].get("eval", {}), **floor,
             # the profiler's device time per call in each path's run
             "device_ms": eval_ms[name],
-            "rollout": {**timing[name]["rollout"],
+            "rollout": {**timing[name].get("rollout", {}),
                         "device_ms": rollout_ms[name]},
             # phase 3 at the DDA step's and the converted scenes' shapes
             **{path: t for path, t in timing[name].items()

@@ -20,6 +20,7 @@ from torch import nn
 
 from gennbv_tpu_torch import spec
 from gennbv_tpu_torch.config import ModelConfig
+from gennbv_tpu_torch.ops.conv3d_wgrad import conv3d
 
 
 def positional_encoding(positions: torch.Tensor, freqs: int = 2) -> torch.Tensor:
@@ -96,7 +97,9 @@ class HybridEncoder(nn.Module):
     """obs [N, >= 8600] -> feature [N, fused_dim].  Its two BatchNorms take
     Flax's train-mode statistics (``BatchNorm``: the biased batch variance
     in the running stats, momentum 0.1 = Flax's 0.9, eps 1e-5); the rollout
-    and the eval run it in eval mode, the PPO update in train mode."""
+    and the eval run it in eval mode, the PPO update in train mode.  Where
+    a gradient is recorded, the two Conv3d layers take their weight and
+    bias gradients from ``ops/conv3d_wgrad.py``'s deterministic kernel."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device | str = "cuda"):
         super().__init__()
@@ -126,8 +129,8 @@ class HybridEncoder(nn.Module):
         g = spec.GRID_SIZE
         grid = obs[:, spec.STATE_DIM: spec.STATE_DIM + spec.GRID_DIM]
         grid = grid.reshape(n, 1, g, g, g)
-        grid = torch.relu(self.grid_bn1(self.grid_conv1(grid)))
-        grid = torch.relu(self.grid_bn2(self.grid_conv2(grid)))
+        grid = torch.relu(self.grid_bn1(conv3d(self.grid_conv1, grid)))
+        grid = torch.relu(self.grid_bn2(conv3d(self.grid_conv2, grid)))
         # channels-last flatten, as the JAX encoder (encoder.py:78)
         h_grid = grid.permute(0, 2, 3, 4, 1).reshape(n, -1)
         h_grid = torch.relu(self.grid_fc(h_grid))

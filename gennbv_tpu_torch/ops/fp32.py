@@ -37,8 +37,13 @@ def deterministic_fp32() -> None:
     update's backward pass did, so two trainings from one seed differed
     from the first minibatch's gradients of the first Conv3d and
     BatchNorm on.  The deterministic algorithms are asked for instead,
-    chosen by cuDNN's heuristics rather than by timing (on an H100 they
-    cost 0 to ~7% of a training iteration; PERF.md, section 5).  cuBLAS gets
+    chosen by cuDNN's heuristics rather than by timing.  For the encoder's
+    two Conv3d layers the deterministic weight gradient that cuDNN picks
+    took 80 to 300 times the shapes' least time on an H100, most of the
+    PPO update's device time (PERF.md, sections 5 and 6), so those layers
+    take their weight and bias gradients from the port's own deterministic
+    kernel (``ops/conv3d_wgrad.py``) and only their forward and data
+    gradient from cuDNN.  cuBLAS gets
     a fixed workspace per stream, where the environment does not already
     set one, as a precaution: no cuBLAS result was seen to differ without
     it.  It takes effect only before the process's first cuBLAS call, and

@@ -4,7 +4,8 @@ each wrapper adds one to its counter ``kernel/<name>/launches``
 else."""
 from __future__ import annotations
 
-from gennbv_tpu_torch.ops import fused_splat, gather, scatter, zbuf_scatter
+from gennbv_tpu_torch.ops import (conv3d_wgrad, fused_splat, gather, scatter,
+                                  zbuf_scatter)
 from gennbv_tpu_torch.utils import profiling
 
 WRAPPERS = {
@@ -12,6 +13,7 @@ WRAPPERS = {
     "scatter_cells_any": scatter.scatter_cells_any,
     "zbuf_visible": fused_splat.zbuf_visible,
     "zbuf_scatter_min": zbuf_scatter.zbuf_scatter_min,
+    "conv3d_wgrad": conv3d_wgrad.conv3d_wgrad,
 }
 
 

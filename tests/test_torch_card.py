@@ -1,5 +1,6 @@
 """Tests of the port that need a CUDA card: each kernel against its plain
-version, the mapping golden, a rollout and an eval with the kernels in
+version (the Conv3d weight gradient, which sums in its own order, against
+float64, in a CUDA graph too), the mapping golden, a rollout and an eval with the kernels in
 use, the exact z-buffer env against the CPU, a PPO update against the same update on the CPU, the train CLI, and
 two trainings from one seed; the drone, the legged robots (plane and
 rough terrain) and the recurrent actor-critic against the CPU, and two
@@ -317,6 +318,77 @@ def test_zbuf_scatter_kernel_at_the_tools_defaults(cuda):
         chip_smoke.zbuf_scatter_edge_case(*case)
 
 
+@pytest.mark.parametrize("n", [1, 16, 127, 128, 256])
+@pytest.mark.parametrize("layer", [1, 2])
+def test_conv3d_wgrad_kernel_against_float64(cuda, n, layer):
+    """The encoder's two layers at minibatches of 1 to 256 (the first's X a
+    strided view of observations): dW and db within chip_smoke's
+    WGRAD_REL_TOL of the sum of the products' magnitudes from the float64
+    gradient (each output a chain of fewer than 2^10 float32 additions),
+    the same bits from two calls, and one count a call."""
+    import chip_smoke
+    x, dy = chip_smoke.wgrad_inputs(n, n)[layer - 1]
+    before = kernels.launches()["conv3d_wgrad"]
+    assert chip_smoke.wgrad_held(f"layer {layer}, n {n}", x, dy) \
+        <= chip_smoke.WGRAD_REL_TOL
+    torch.cuda.synchronize()
+    assert kernels.launches()["conv3d_wgrad"] == before + 2
+
+
+def test_conv3d_wgrad_kernel_more_channels_than_a_slab(cuda):
+    """40 -> 24 channels on 7^3: the register blocks take several slabs,
+    a CTA each; an odd channel count pads its last block."""
+    import chip_smoke
+    from gennbv_tpu_torch.ops import conv3d_wgrad
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(9, 40, 7, 7, 7, device="cuda", generator=gen)
+    dy = torch.randn(9, 23, 3, 3, 3, device="cuda", generator=gen)
+    assert conv3d_wgrad.geometry(9, 27, 40, 23, torch.cuda.get_device_properties(
+        0).multi_processor_count).slabs > 1
+    chip_smoke.wgrad_held("slabs", x, dy)
+
+
+def test_conv3d_wgrad_kernel_replays_in_a_cuda_graph(cuda):
+    """Captured in a CUDA graph (workspace and outputs from the graph's
+    pool, launches on the capture stream), a replay on new inputs in the
+    same buffers gives the eager call's bits."""
+    from gennbv_tpu_torch.ops import conv3d_wgrad
+    import chip_smoke
+    (x, dy), _ = chip_smoke.wgrad_inputs(128, 3)
+    conv3d_wgrad.conv3d_wgrad(x, dy)                  # build, outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        dw, db = conv3d_wgrad.conv3d_wgrad(x, dy)
+    (x2, dy2), _ = chip_smoke.wgrad_inputs(128, 4)
+    x.copy_(x2)
+    dy.copy_(dy2)
+    graph.replay()
+    want = conv3d_wgrad.conv3d_wgrad(x, dy)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, want[0]) and torch.equal(db, want[1])
+
+
+@pytest.mark.parametrize("x_shape, dy_shape, kwargs, error", [
+    ((2, 1, 20, 20, 20), (2, 16, 9, 9, 9), {"kernel_size": 5}, ValueError),
+    ((2, 1, 20, 20, 20), (2, 16, 9, 9, 9), {"stride": 1}, ValueError),
+    ((2, 1, 20, 20, 20), (2, 16, 18, 18, 18), {}, ValueError),
+])
+def test_conv3d_wgrad_kernel_refuses_what_it_does_not_take(
+        cuda, x_shape, dy_shape, kwargs, error):
+    from gennbv_tpu_torch.ops import conv3d_wgrad
+    before = kernels.launches()["conv3d_wgrad"]
+    with pytest.raises(error):
+        conv3d_wgrad.conv3d_wgrad(torch.zeros(x_shape, device="cuda"),
+                                  torch.zeros(dy_shape, device="cuda"),
+                                  **kwargs)
+    with pytest.raises(TypeError):
+        conv3d_wgrad.conv3d_wgrad(
+            torch.zeros(2, 1, 20, 20, 20, device="cuda", dtype=torch.half),
+            torch.zeros(2, 16, 9, 9, 9, device="cuda", dtype=torch.half))
+    assert kernels.launches()["conv3d_wgrad"] == before
+
+
 def test_golden_on_card(cuda):
     import chip_smoke
     chip_smoke.phase_golden()
@@ -544,7 +616,8 @@ def test_train_cli_on_card(cuda, tmp_path, capsys):
         "--set", "env.renderer.resolution=16", "--set", "env.scene.num_scenes=8",
         "--set", "ppo.n_steps=8", "--set", "ppo.batch_size=16"])
     torch.cuda.synchronize()
-    assert chip_smoke.launches() == chip_smoke.splat_expect(1 + 2 * 8)
+    assert chip_smoke.launches() == chip_smoke.trained(
+        chip_smoke.splat_expect(1 + 2 * 8))
     assert "final:" in capsys.readouterr().out
     (run,) = tmp_path.iterdir()
     logged = [json.loads(line) for line in open(run / "metrics.jsonl")]
@@ -610,7 +683,8 @@ def test_dda_step_kernels_equal_plain(cuda):
     free = gather.gather_image(fg, vi, ui)
     torch.cuda.synchronize()
     assert chip_smoke.launches() == {"gather_image": 1, "scatter_cells_any": 1,
-                                     "zbuf_visible": 0, "zbuf_scatter_min": 0}
+                                     "zbuf_visible": 0, "zbuf_scatter_min": 0,
+                                     "conv3d_wgrad": 0}
     assert torch.equal(hits, scatter.scatter_cells_any_ref(idx, valid, 20))
     assert torch.equal(free, gather.gather_image_ref(fg, vi, ui))
     assert hits.sum() > 0 and free.sum() > 0
@@ -1025,7 +1099,8 @@ def test_bench_at_smoke_shapes_on_card(cuda):
     assert res["kernel_launches"] == {"gather_image": 8,
                                       "scatter_cells_any": 8,
                                       "zbuf_visible": 8,
-                                      "zbuf_scatter_min": 0}
+                                      "zbuf_scatter_min": 0,
+                                      "conv3d_wgrad": 0}
     assert res["value"] > 0 and res["tflops_per_iter"] >= 0
     assert res["gbytes_per_iter"] > 0
     assert res["peak"]["type"] == "float32"

@@ -180,10 +180,11 @@ class ReconEnv:
                 fresh if self._use_init_cache else None)
         elif cfg.renderer.mode == "dda":
             sc = self.scenes
-            depth, mask = render.render_depth(
-                sc.render_occ[scene_id], sc.box_lo[scene_id],
-                sc.box_hi[scene_id], self.cam_rays, r_c2w, t_c2w,
-                sc.grid_res, 3 * sc.grid_res, cfg.camera.depth_max)
+            with profiling.device_span("env/render/raymarch", self.device):
+                depth, mask = render.render_depth(
+                    sc.render_occ[scene_id], sc.box_lo[scene_id],
+                    sc.box_hi[scene_id], self.cam_rays, r_c2w, t_c2w,
+                    sc.grid_res, 3 * sc.grid_res, cfg.camera.depth_max)
         else:
             depth, mask = self.depth_source.render_batch(scene_id, poses)
         gray = camera.depth_to_grayscale(depth.reshape(-1, h, w),
@@ -236,10 +237,12 @@ class ReconEnv:
         idx, in_bounds = voxel.points_to_voxel_idx(sc.surf_pts[scene_id],
                                                    visible, range_gt, vsize)
         hit_grid = voxel.scatter_hits(g, idx, in_bounds)
-        centers = scene_lib.voxel_centers(range_gt, vsize, g)
-        traversed = carve.carve_ztest(
-            centers, zbuf.reshape(-1, h, w), self.intrinsics, r_c2w, t_c2w,
-            0.5 * fp32.mean3(vsize), cfg.camera.depth_max).reshape(-1, g, g, g)
+        with profiling.device_span("env/map/carve", self.device):
+            centers = scene_lib.voxel_centers(range_gt, vsize, g)
+            traversed = carve.carve_ztest(
+                centers, zbuf.reshape(-1, h, w), self.intrinsics, r_c2w,
+                t_c2w, 0.5 * fp32.mean3(vsize),
+                cfg.camera.depth_max).reshape(-1, g, g, g)
         return hit_grid, traversed
 
     def _depth_map(self, scene_id, poses, r_c2w, t_c2w, depth, fg):
@@ -256,15 +259,17 @@ class ReconEnv:
                                              r_c2w, t_c2w)
         idx, in_bounds = voxel.points_to_voxel_idx(pts, valid, range_gt, vsize)
         hit_grid = voxel.scatter_hits(g, idx, in_bounds)
-        if cfg.carve_mode == "bresenham":
-            cam_voxel = voxel.pose_to_voxel_idx(poses[:, :3], range_gt, vsize)
-            traversed = carve.carve_bresenham(hit_grid, cam_voxel, g)
-        else:
-            centers = scene_lib.voxel_centers(range_gt, vsize, g)
-            traversed = carve.carve_ztest(
-                centers, depth.reshape(-1, h, w), self.intrinsics, r_c2w,
-                t_c2w, 0.5 * fp32.mean3(vsize),
-                fg=fg.reshape(-1, h, w)).reshape(-1, g, g, g)
+        with profiling.device_span("env/map/carve", self.device):
+            if cfg.carve_mode == "bresenham":
+                cam_voxel = voxel.pose_to_voxel_idx(poses[:, :3], range_gt,
+                                                    vsize)
+                traversed = carve.carve_bresenham(hit_grid, cam_voxel, g)
+            else:
+                centers = scene_lib.voxel_centers(range_gt, vsize, g)
+                traversed = carve.carve_ztest(
+                    centers, depth.reshape(-1, h, w), self.intrinsics, r_c2w,
+                    t_c2w, 0.5 * fp32.mean3(vsize),
+                    fg=fg.reshape(-1, h, w)).reshape(-1, g, g, g)
         return hit_grid, traversed
 
     def _build_init_step_cache(self):
@@ -290,7 +295,9 @@ class ReconEnv:
     def step(self, state: EnvState, actions: torch.Tensor):
         """actions: [N, 6] discrete pose indices.  The span ``env/step``
         (``env/render``, ``env/map``, ``env/reward``), counted in
-        ``env/steps`` and, by its envs, ``env/env_steps``."""
+        ``env/steps`` and, by its envs, ``env/env_steps``.  Inside them
+        the device-timed spans ``env/render/raymarch`` (the "dda" march)
+        and ``env/map/carve`` (every path's carve)."""
         n = state.episode_len.shape[0]
         profiling.count("env/steps")
         profiling.count("env/env_steps", n)

@@ -12,6 +12,10 @@
 Both give a {0,1} traversed mask; the fused grid update is
 ``prob' = where(hit, 1.0, prob - 0.05 * traversed)``
 (env_train_gennbv.py:311-314: the occupied overwrite wins).
+
+While spans record (``utils/profiling.recording``), ``bresenham_traversed``
+counts the valid rays it marches (``carve/bresenham_rays``, summed on the
+device).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 from gennbv_tpu_torch import spec
 from gennbv_tpu_torch.ops import fp32, gather
 from gennbv_tpu_torch.ops.camera import pixel_index
+from gennbv_tpu_torch.utils import profiling
 
 
 def bresenham_traversed(src: torch.Tensor, targets: torch.Tensor,
@@ -37,6 +42,8 @@ def bresenham_traversed(src: torch.Tensor, targets: torch.Tensor,
     scatter of 1.0, order-free) instead of stacking the scan's indices."""
     g = grid_size
     n = src.shape[0]
+    if profiling.recording():
+        profiling.count("carve/bresenham_rays", target_valid.sum())
     targets = targets.to(torch.int32).expand(n, -1, 3)
     delta = targets - src.to(torch.int32)[:, None, :]           # [N, R, 3]
     d = delta.abs()

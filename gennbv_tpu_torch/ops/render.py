@@ -14,6 +14,10 @@ Collision is the voxel-grid replacement of the PhysX contact-force
 termination test (env_train_gennbv.py:446): a pose collides iff any
 occupied render voxel lies under one of 27 probes on the cube of
 half-width `radius` around it.
+
+While spans record (``utils/profiling.recording``), ``raymarch`` counts
+its DDA iterations run before the early exit (``raymarch/iterations``)
+and its alive checks' host syncs (``raymarch/syncs``), summed over calls.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import math
 import torch
 
 from gennbv_tpu_torch.ops import fp32
+from gennbv_tpu_torch.utils import profiling
 
 # rays still alive are tested for an early end every this many DDA steps
 # (one host sync each); dead rays never change state, so ending early
@@ -73,9 +78,13 @@ def raymarch(occ_flat: torch.Tensor, box_lo: torch.Tensor,
                        device=dirs.device)
     strides = torch.tensor([r * r, r, 1], dtype=torch.int32, device=dirs.device)
     axes = torch.arange(3, device=dirs.device)
+    iterations = syncs = 0
     for i in range(max_steps):
-        if i % _ALIVE_CHECK_EVERY == 0 and not bool(alive.any()):
-            break
+        if i % _ALIVE_CHECK_EVERY == 0:
+            syncs += 1
+            if not bool(alive.any()):
+                break
+        iterations += 1
         flat = (voxel * strides).sum(-1, dtype=torch.int64)
         solid = torch.gather(occ, 1, flat) > 0
         new_hit = alive & solid & ~hit
@@ -91,6 +100,9 @@ def raymarch(occ_flat: torch.Tensor, box_lo: torch.Tensor,
         alive = alive & in_grid & ~hit
         # a dead ray's voxel may leave the grid: keep its read in range
         voxel = torch.where(alive[..., None], voxel, 0)
+    if profiling.recording():
+        profiling.count("raymarch/iterations", iterations)
+        profiling.count("raymarch/syncs", syncs)
 
     depth = torch.where(hit, torch.clamp_max(t_hit, depth_max), depth_max)
     return depth.reshape(*lead, p), hit.reshape(*lead, p)

@@ -13,8 +13,14 @@
   from CUDA events recorded at its ends on a card (read later, without a
   host wait), or the host's seconds on the CPU; :func:`phases` hands a
   unit's over, as the reference-compatible ``time/*`` metric keys.
+- :func:`device_span` -- a span that, only while spans record, also
+  times its region on a device and keeps that time on the recorded span
+  (:func:`device_seconds`); off, the shared no-op.
 - :func:`count` -- always-on integer counters in one store
-  (:func:`counters`), the kernels' launch counts among them.
+  (:func:`counters`), the kernels' launch counts among them; a count made
+  on a device (a tensor) is summed there and read on the host only by
+  :func:`counters`, and is made only where :func:`recording` says spans
+  record.
 - :func:`trace` -- a context manager around ``torch.profiler`` that writes
   a Chrome trace (``trace.json``, viewable in Perfetto or
   ``chrome://tracing``) of the enclosed steps, the spans among its
@@ -48,6 +54,9 @@ class Span(NamedTuple):
     unit: object             # given, or the enclosing span's
     start_ns: int            # time.time_ns()
     end_ns: int
+    # a device-timed span's region on its device: the CUDA events at its
+    # ends, or the host's seconds on the CPU (device_seconds); else None
+    took: object = None
 
 
 _ring: deque = deque(maxlen=RING)
@@ -57,15 +66,17 @@ _open: list = []             # the open traced spans, innermost last
 _ids = itertools.count()
 _timed: dict = {}            # unit -> {name: [(start, end) events or seconds]}
 _counts: Dict[str, int] = {}
+_on_device: Dict[str, torch.Tensor] = {}   # count's sums not read yet
 _OFF = contextlib.nullcontext()
 
 
 class _Span:
-    __slots__ = ("name", "given", "unit", "device", "traced", "id",
+    __slots__ = ("name", "given", "unit", "device", "traced", "phase", "id",
                  "parent", "start_ns", "start", "record")
 
-    def __init__(self, name: str, unit, device, traced: bool):
-        self.name, self.traced = name, traced
+    def __init__(self, name: str, unit, device, traced: bool,
+                 phase: bool = True):
+        self.name, self.traced, self.phase = name, traced, phase
         self.given = self.unit = unit
         self.device = None if device is None else torch.device(device)
 
@@ -91,6 +102,7 @@ class _Span:
         return self
 
     def __exit__(self, *exc):
+        took = None
         if self.device is not None:
             if self.device.type == "cuda":
                 end = torch.cuda.Event(enable_timing=True)
@@ -98,16 +110,17 @@ class _Span:
                 took = (self.start, end)
             else:
                 took = time.perf_counter() - self.start
-            # filed under the unit it was given, traced or not
-            _timed.setdefault(self.given, {}).setdefault(
-                self.name, []).append(took)
+            if self.phase:
+                # filed under the unit it was given, traced or not
+                _timed.setdefault(self.given, {}).setdefault(
+                    self.name, []).append(took)
         if self.traced:
             end_ns = time.time_ns()
             if self.record is not None:
                 self.record.__exit__(None, None, None)
             _open.pop()
             _keep(Span(self.id, self.name, self.parent, self.unit,
-                       self.start_ns, end_ns))
+                       self.start_ns, end_ns, took))
         return False
 
 
@@ -121,6 +134,38 @@ def span(name: str, unit=None, device: Optional[torch.device | str] = None):
     if device is None:
         return _OFF
     return _Span(name, unit, device, False)
+
+
+def device_span(name: str, device: torch.device | str):
+    """A context manager around a region named `name`: while spans record
+    (:func:`recording`), a span of the enclosing span's unit whose region
+    is also timed on `device`, the time kept on the recorded span alone
+    (:func:`device_seconds`; no unit's phases); otherwise the shared
+    no-op."""
+    return _Span(name, None, device, True, phase=False) if recording() \
+        else _OFF
+
+
+def recording() -> bool:
+    """Whether spans record now (a profiler session or :func:`tracing`)."""
+    return bool(_forced or _profiler._is_profiler_enabled)
+
+
+def _seconds(took) -> float:
+    """A timed region's seconds: the host's, or its CUDA events' (waiting
+    for the device where the end event has not been reached yet)."""
+    if isinstance(took, float):
+        return took
+    start, end = took
+    if not end.query():
+        end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def device_seconds(s: Span) -> Optional[float]:
+    """A recorded span's seconds on its device; None where the span was
+    not device-timed."""
+    return None if s.took is None else _seconds(s.took)
 
 
 @contextlib.contextmanager
@@ -157,7 +202,8 @@ def write_spans(path: str, since_ns: int = 0) -> None:
     with open(path, "w") as f:
         for s in spans():
             if s.start_ns >= since_ns:
-                f.write(json.dumps(s._asdict(), default=str) + "\n")
+                f.write(json.dumps(s._replace(took=device_seconds(s))
+                                   ._asdict(), default=str) + "\n")
 
 
 class Phases:
@@ -170,14 +216,7 @@ class Phases:
     def metrics(self) -> Dict[str, float]:
         """``time/<name>``: each name's seconds (waiting for the device
         where an end event has not been reached yet)."""
-        def seconds(t) -> float:
-            if isinstance(t, float):
-                return t
-            start, end = t
-            if not end.query():
-                end.synchronize()
-            return start.elapsed_time(end) / 1e3
-        return {f"time/{k}": sum(map(seconds, v)) for k, v in self._acc.items()}
+        return {f"time/{k}": sum(map(_seconds, v)) for k, v in self._acc.items()}
 
 
 def phases(unit=None) -> Phases:
@@ -186,12 +225,21 @@ def phases(unit=None) -> Phases:
     return Phases(_timed.pop(unit, {}))
 
 
-def count(name: str, n: int = 1) -> None:
-    _counts[name] = _counts.get(name, 0) + n
+def count(name: str, n: int | torch.Tensor = 1) -> None:
+    """Adds `n` to the counter `name`; an integer tensor `n` is summed on
+    its device, without a host wait, until :func:`counters` reads it."""
+    if isinstance(n, torch.Tensor):
+        held = _on_device.get(name)
+        _on_device[name] = n if held is None else held + n
+    else:
+        _counts[name] = _counts.get(name, 0) + n
 
 
 def counters(prefix: str = "") -> Dict[str, int]:
-    """The counters whose names start with `prefix`."""
+    """The counters whose names start with `prefix` (the device's sums
+    among them read here, waiting for the device)."""
+    for k in [k for k in _on_device if k.startswith(prefix)]:
+        _counts[k] = _counts.get(k, 0) + int(_on_device.pop(k))
     return {k: v for k, v in _counts.items() if k.startswith(prefix)}
 
 

@@ -256,3 +256,110 @@ def test_spans_write_out_only_when_asked(tmp_path):
     profiling.write_spans(path, t0)
     (line,) = [json.loads(x) for x in open(path)]
     assert line["name"] == "write/me" and line["unit"] == 1
+
+
+# --- the march's and the carve's spans and counters ----------------------
+
+def test_a_count_made_on_the_device_is_summed_there_until_read():
+    """``count`` of a tensor adds it to a sum held on its device, which
+    ``counters`` reads once and folds into the host's count; a reset
+    drops what was not read."""
+    profiling.reset_counters("t/dev")
+    profiling.count("t/dev/a", 2)
+    profiling.count("t/dev/a", torch.tensor(3))
+    profiling.count("t/dev/a", torch.tensor([True, False, True]).sum())
+    assert isinstance(profiling._on_device["t/dev/a"], torch.Tensor)
+    assert profiling.counters("t/dev") == {"t/dev/a": 7}
+    assert "t/dev/a" not in profiling._on_device
+    assert profiling.counters("t/dev") == {"t/dev/a": 7}
+    profiling.count("t/dev/a", torch.tensor(5))
+    profiling.reset_counters("t/dev")
+    assert profiling.counters("t/dev") == {"t/dev/a": 0}
+
+
+NEW_COUNTERS = ("raymarch/iterations", "raymarch/syncs",
+                "carve/bresenham_rays")
+
+
+def _env(mode: str, carve_mode: str) -> ReconEnv:
+    cfg = pt_config.EnvConfig(
+        num_envs=3, max_episode_length=4, carve_mode=carve_mode,
+        camera=pt_config.CameraConfig(height=16, width=16),
+        renderer=pt_config.RendererConfig(mode=mode, resolution=16),
+        scene=pt_config.SceneConfig(num_scenes=3, seed=1))
+    return ReconEnv(cfg, make_scenes(cfg.scene, 16, "cpu"))
+
+
+@pytest.mark.parametrize("mode,carve_mode", [
+    ("dda", "bresenham"), ("dda", "ztest"), ("splat", "ztest")])
+def test_an_env_step_names_its_march_and_its_carve(mode, carve_mode):
+    """A traced step records ``env/map/carve`` inside ``env/map`` on every
+    path and, on the "dda" path, ``env/render/raymarch`` inside
+    ``env/render``, each with its seconds on the device (the host's on
+    the CPU); off, neither records, and the spans are the shared no-op."""
+    env = _env(mode, carve_mode)
+    state = env.init_state(3)
+    actions = env.init_action.expand(3, 6)
+    t0 = time.time_ns()
+    with profiling.tracing():
+        env.step(state, actions)
+    spans = _since(t0)
+    by_id = {s.id: s for s in spans}
+    want = {"env/map/carve": "env/map"}
+    if mode == "dda":
+        want["env/render/raymarch"] = "env/render"
+    else:
+        assert not [s for s in spans if s.name == "env/render/raymarch"]
+    for name, parent in want.items():
+        (s,) = [s for s in spans if s.name == name]
+        assert by_id[s.parent].name == parent
+        took = profiling.device_seconds(s)
+        assert isinstance(took, float) and 0 < took <= \
+            (s.end_ns - s.start_ns) / 1e9 + 1e-3
+    assert profiling.device_seconds(by_id[s.parent]) is None
+    t1 = time.time_ns()
+    counts = profiling.counters()
+    env.step(state, actions)
+    assert _since(t1) == []
+    assert {k: profiling.counters().get(k) for k in NEW_COUNTERS} == \
+        {k: counts.get(k) for k in NEW_COUNTERS}
+    assert profiling.device_span("off/a", "cpu") is profiling.span("off/b")
+
+
+def test_the_march_and_carve_counters_count_what_the_call_did():
+    """``raymarch/iterations``: the loop's iterations up to its early
+    exit, the first alive check (one every 16) after the last voxel any
+    ray read (the benchmark's own march counts the reads);
+    ``raymarch/syncs``: those checks; ``carve/bresenham_rays``: the hit
+    voxels, one ray each.  Off, they count nothing."""
+    from benchmark.reference import env_exact
+    from gennbv_tpu_torch.ops import carve, render
+    g = torch.Generator().manual_seed(3)
+    r, cap = 16, 48
+    occ = (torch.rand(2, r ** 3, generator=g) < 0.02).to(torch.uint8)
+    lo, hi = torch.zeros(2, 3), torch.full((2, 3), 8.0)
+    origin = torch.tensor([[-1.0, 4.0, 4.0], [4.0, 4.0, 9.0]])
+    dirs = torch.randn(2, 300, 3, generator=g)
+    _, _, reads = env_exact.march(occ, lo, hi, origin, dirs, r, cap, 50.0)
+    most = int(reads.max())
+    iterations = min(cap, 16 * -(-most // 16))
+    syncs = -(-iterations // 16) + (iterations < cap)
+    hit = (torch.rand(2, 20, 20, 20, generator=g) < 0.01).float()
+    src = torch.tensor([[-3, 5, 25], [10, 10, 10]], dtype=torch.int32)
+
+    def call():
+        render.raymarch(occ, lo, hi, origin, dirs, r, cap, 50.0)
+        carve.carve_bresenham(hit, src, 20)
+
+    before = profiling.counters()
+    with profiling.tracing():
+        call()
+    # the carve's count stays a sum on the device until counters reads it
+    assert "carve/bresenham_rays" in profiling._on_device
+    after = profiling.counters()
+    assert {k: after[k] - before.get(k, 0) for k in NEW_COUNTERS} == {
+        "raymarch/iterations": iterations, "raymarch/syncs": syncs,
+        "carve/bresenham_rays": int(hit.sum())}
+    assert 0 < iterations < cap and int(hit.sum()) > 0
+    call()
+    assert profiling.counters() == after

@@ -425,6 +425,8 @@ KERNELS = {
                          "tools/bench_scatter.py:93"),
     # no TPU kernel: the JAX encoder's Conv3d gradients are XLA's
     "conv3d_wgrad": ("gennbv_tpu_torch/csrc/conv3d_wgrad.cu", None),
+    # no TPU kernel: the JAX package's ray march is an XLA loop
+    "raymarch": ("gennbv_tpu_torch/csrc/raymarch.cu", None),
 }
 assert set(KERNELS) == set(WRAPPERS)
 
@@ -437,6 +439,7 @@ PORT_KERNEL_FUNCTIONS = {
     "zbuf_visible": "zbuf_visible_cluster_kernel",
     "zbuf_scatter_min": "zbuf_scatter_min_kernel",
     "conv3d_wgrad": "conv3d_wgrad_partial_kernel",
+    "raymarch": "raymarch_kernel",
 }
 WGRAD_REDUCE_FUNCTION = "conv3d_wgrad_reduce_kernel"
 # the conv3d_wgrad wrapper's calls a minibatch step (the encoder's two
@@ -465,9 +468,9 @@ def splat_expect(k: int) -> dict:
     """Each kernel's launches in a run of k env steps (resets and init-view
     caches counted as steps) on the splat path under zbuf_impl mxu or
     pallas: the fused splat, the hit scatter and the carve gather once a
-    step; the exact scatter-min z-buffer never."""
+    step; the exact scatter-min z-buffer and the ray march never."""
     return {"gather_image": k, "scatter_cells_any": k, "zbuf_visible": k,
-            "zbuf_scatter_min": 0, "conv3d_wgrad": 0}
+            "zbuf_scatter_min": 0, "conv3d_wgrad": 0, "raymarch": 0}
 
 
 def exact_zbuf_expect(k: int) -> dict:
@@ -475,7 +478,7 @@ def exact_zbuf_expect(k: int) -> dict:
     the scatter-min z-buffer once a step, the gather twice (the visibility
     and the carve), the hit scatter once, the fused splat never."""
     return {"gather_image": 2 * k, "scatter_cells_any": k, "zbuf_visible": 0,
-            "zbuf_scatter_min": k, "conv3d_wgrad": 0}
+            "zbuf_scatter_min": k, "conv3d_wgrad": 0, "raymarch": 0}
 
 
 def phase_device() -> str:
@@ -869,6 +872,102 @@ def wgrad_case(label: str, x, dy) -> dict:
     return res
 
 
+def march_args(scenes, cam: config.CameraConfig):
+    """The ray march's arguments at a step of every scene of `scenes` under
+    `cam`, each seen from a pose of _step_poses: (occ, box_lo, box_hi,
+    origin, dirs, R, 3R, depth_max), dirs the camera rays rotated as
+    render_depth rotates them."""
+    _, r, t, _ = _step_poses(scenes, cam)
+    rays = torch.as_tensor(camera.camera_rays(cam.height, cam.width,
+                                              cam.horizontal_fov_deg),
+                           device=r.device)
+    dirs = fp32.rotate_fma(rays, r.transpose(-1, -2))
+    return (scenes.render_occ, scenes.box_lo, scenes.box_hi, t, dirs,
+            scenes.grid_res, 3 * scenes.grid_res, cam.depth_max)
+
+
+def march_held(label: str, args) -> torch.Tensor:
+    """Raises unless the kernel's depth and hit equal the plain loop's on
+    the card bit for bit, and the benchmark's own march
+    (benchmark/reference/env_exact.py), and unless a traced call counts
+    the exact march's voxel reads; returns the reads [N, P]."""
+    from benchmark.reference import env_exact
+    got = render.raymarch(*args)
+    want = render.raymarch_ref(*args)
+    _equal(label, (got[0].view(torch.int32), got[1]),
+           (want[0].view(torch.int32), want[1]))
+    depth, hit, reads = env_exact.march(*args)
+    if not (torch.equal(got[0], depth) and torch.equal(got[1], hit)):
+        raise AssertionError(f"{label}: kernel differs from the benchmark's "
+                             "exact march")
+    before = profiling.counters("raymarch/").get("raymarch/voxel_reads", 0)
+    with profiling.tracing():
+        render.raymarch(*args)
+    counted = profiling.counters("raymarch/")["raymarch/voxel_reads"] - before
+    if counted != int(reads.sum()):
+        raise AssertionError(f"{label}: raymarch/voxel_reads counted "
+                             f"{counted}, the exact march read "
+                             f"{int(reads.sum())}")
+    return reads
+
+
+def march_case(label: str, scenes, cam: config.CameraConfig) -> dict:
+    """The ray march's kernel on march_args(scenes, cam): held
+    (march_held), one device launch of raymarch_kernel a call (while the
+    profiler records, the fill and the sum of its reads counter beside
+    it), timed as _case times a kernel beside the plain loop and the whole
+    render_depth (the rotation of the rays in PyTorch, then the kernel);
+    the bound is the benchmark's own count of the march's work
+    (benchmark/work/raymarch.py) at the exact march's reads."""
+    from benchmark.work import raymarch as march_work
+    args = march_args(scenes, cam)
+    reads = march_held(label, args)
+    kernel = lambda: render.raymarch(*args)
+    plain = lambda: render.raymarch_ref(*args)
+    _, r, t, _ = _step_poses(scenes, cam)
+    rays = torch.as_tensor(camera.camera_rays(cam.height, cam.width,
+                                              cam.horizontal_fov_deg),
+                           device=r.device)
+    whole = lambda: render.render_depth(args[0], args[1], args[2], rays, r, t,
+                                        *args[5:])
+    calls = 10
+
+    def run():
+        for _ in range(calls):
+            kernel()
+
+    kernel()
+    _, spans = _profiled(label, run)
+    fn = PORT_KERNEL_FUNCTIONS["raymarch"]
+    marches = [e for e in spans if fn in e.name]
+    if len(marches) != calls:
+        raise AssertionError(f"{label}: {len(marches)} launches of {fn} in "
+                             f"{calls} calls ({sorted({e.name for e in spans})})")
+    device_ms = sum(e.time_range.end - e.time_range.start
+                    for e in marches) / calls / 1e3
+    n, p = args[4].shape[:2]
+    bound_ms, bound_by = _bound(*march_work.work(int(reads.sum()), n * p, n,
+                                                 args[5]))
+    res = {"max_abs_err": 0.0, "ms": _time_ms(kernel),
+           "plain_ms": _time_ms(plain, trials=3, calls=1),
+           "render_depth_ms": _time_ms(whole),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "cold_ms": _time_cold_ms(kernel),
+           "cold_dirty_ms": _time_cold_ms(kernel, flush="zero"),
+           "device_launches_per_call": 1, "kernel_device_ms": device_ms,
+           "reads_per_ray": int(reads.sum()) / (n * p),
+           "longest_ray": int(reads.max())}
+    print(f"{label}: kernel {res['ms']:.4f} ms (cold {res['cold_ms']:.4f} ms, "
+          f"dirty {res['cold_dirty_ms']:.4f} ms), plain loop "
+          f"{res['plain_ms']:.4f} ms, render_depth {res['render_depth_ms']:.4f}"
+          f" ms, bound {bound_ms:.4f} ms ({bound_by}) (median, CUDA events); "
+          f"1 device launch a call, {device_ms:.4f} ms of device time "
+          f"(profiler); {res['reads_per_ray']:.2f} voxel reads a ray, the "
+          f"longest {res['longest_ray']}; bit-equal to the plain loop and to "
+          "the benchmark's exact march, its reads counted")
+    return res
+
+
 def exact_zbuf_inputs(vic, uic, z, ok, w, depth_max):
     """What zbuf_scatter_vis_px hands the scatter-min: each point's pixel
     in its env's image and its depth, depth_max where it is not valid."""
@@ -1173,6 +1272,14 @@ def phase_kernels(eval_scenes, rollout_scenes,
         out["conv3d_wgrad"][f"update_conv{layer}"] = wgrad_case(
             f"update: conv3d_wgrad, layer {layer}: x {list(x.shape)}, dy "
             f"{list(dy.shape)}", x, dy)
+    # the ray march at dda400.eval's step (50 envs, 400x400, R=64) and at
+    # the DDA rollout's (256 envs, 128x128)
+    for path, scenes, hw in (("eval", eval_scenes, EVAL_HW),
+                             ("rollout", rollout_scenes, HW)):
+        out["raymarch"][path] = march_case(
+            f"{path}: raymarch [{scenes.num_scenes}x{hw * hw}] rays, "
+            f"R={scenes.grid_res}", scenes,
+            config.CameraConfig(height=hw, width=hw))
     planted_gather_case(G ** 3)
     paths = [gather_edge_case(*case) for case in GATHER_EDGES]
     print(f"gather_image: bit-equal to the plain version with one device "
@@ -2057,7 +2164,9 @@ def phase_report(card: str, run_dir: str) -> dict:
     # reset and one launch a step
     per_family = (1 + env_cfg.max_episode_length
                   + (env_cfg.renderer.zbuf_impl == "pallas"))
-    expect = splat_expect(len(fams) * per_family)
+    # and the accuracy scan's ray march of each view, the init view's too
+    expect = {**splat_expect(len(fams) * per_family),
+              "raymarch": len(fams) * (1 + env_cfg.max_episode_length)}
     if counts != expect:
         raise AssertionError(f"report launched {counts}, expected {expect}")
     with open(REFERENCE_REPORT) as f:
@@ -2150,14 +2259,14 @@ def dda_config(carve_mode: str, mode: str = "dda") -> config.EnvConfig:
                                                             mode=mode))
 
 
-def dda_expect(carve_mode: str) -> dict:
+def dda_expect(carve_mode: str, mode: str = "dda") -> dict:
     """Each kernel's launches a step of the DDA, replay and callback paths:
     the hit scatter once; the gather of the depth and of the hit mask with
-    the z-test carve, none with Bresenham's; no splat and no scatter-min
-    z-buffer."""
+    the z-test carve, none with Bresenham's; the ray march once on the DDA
+    path, never on the others; no splat and no scatter-min z-buffer."""
     return {"gather_image": 2 if carve_mode == "ztest" else 0,
             "scatter_cells_any": 1, "zbuf_visible": 0, "zbuf_scatter_min": 0,
-            "conv3d_wgrad": 0}
+            "conv3d_wgrad": 0, "raymarch": int(mode == "dda")}
 
 
 def _step_counted(env, state, actions, expect: dict, label: str):
@@ -2360,7 +2469,8 @@ def phase_dda(card: str, scenes) -> dict:
         envs["derived"] = ReconEnv(
             dda_config("ztest", "replay"), scenes, ReplayDepthSource(
                 ReplayBank(bank.poses, bank.frames, bank.frames < thr)))
-    expect = dda_expect("ztest")
+    expect = {name: dda_expect("ztest", env.cfg.renderer.mode)
+              for name, env in envs.items()}
     reset_launches()
     trace = {name: env.reset(N_ENVS) for name, env in envs.items()}
     for t in range(DDA_STEPS + 1):
@@ -2369,13 +2479,16 @@ def phase_dda(card: str, scenes) -> dict:
                    trace["derived" if far_hits else "dda"])
         if t == DDA_STEPS:
             break
-        trace = {name: _step_counted(env, trace[name][0], actions[t], expect,
-                                     f"{name} step {t}")
+        trace = {name: _step_counted(env, trace[name][0], actions[t],
+                                     expect[name], f"{name} step {t}")
                  for name, env in envs.items()}
-    per_env = {k: v * (1 + DDA_STEPS) for k, v in expect.items()}
-    if launches() != {k: v * len(envs) for k, v in per_env.items()}:
+    per_env = {name: {k: v * (1 + DDA_STEPS) for k, v in e.items()}
+               for name, e in expect.items()}
+    if launches() != {k: sum(e[k] for e in per_env.values())
+                      for k in KERNELS}:
         raise AssertionError(f"replay/callback run launched {launches()}")
-    counts["replay"] = counts["callback"] = per_env
+    counts["replay"] = per_env["replay"]
+    counts["callback"] = per_env["callback"]
     print(f"replay: a bank of {poses.shape[1]} views of each of "
           f"{scenes.num_scenes} scenes recorded by the card's DDA; the replay "
           f"env equals the dda env bit for bit over reset + {DDA_STEPS} steps, "
@@ -2485,7 +2598,10 @@ def phase_dataset(card: str, dirs: dict, root: str) -> dict:
                             "held_out_houses", "--no-artifacts"])
     t_report = time.perf_counter() - t0
     report_counts = launches()
-    expect = splat_expect(1 + spec.MAX_EPISODE_LENGTH_EVAL)
+    # the family's steps and its reset, and the accuracy scan's ray march of
+    # each view
+    expect = {**splat_expect(1 + spec.MAX_EPISODE_LENGTH_EVAL),
+              "raymarch": 1 + spec.MAX_EPISODE_LENGTH_EVAL}
     if report_counts != expect:
         raise AssertionError(f"dataset post_run launched {report_counts}, "
                              f"expected {expect}")

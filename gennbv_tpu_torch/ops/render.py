@@ -10,14 +10,30 @@ itself where the JAX module is vmapped, and rounds where XLA's CPU
 compiler rounds the jitted JAX function (``ops/fp32.py``), so the hit
 flags and depths equal the reference's.
 
+The device of the tensors picks the implementation.  CUDA tensors launch
+the hand-written kernel ``csrc/raymarch.cu`` once, a thread a ray
+(``ops/raymarch.py``); every other device runs the plain loop
+``raymarch_ref``, which steps all rays together and ends early once none
+is left.  Both give the same bits (``tests/test_torch_raymarch_kernel.py``
+holds them equal on a card).
+
+Counters, summed over calls (``utils/profiling.py``):
+
+- ``kernel/raymarch/launches``: the kernel's launches, always (the loop
+  adds nothing to it);
+- while spans record (``profiling.recording``) only:
+  ``raymarch/voxel_reads``, the voxels the rays read up to their first
+  hit or their exit, at most ``max_steps`` a ray (the benchmark's own
+  count of the march's work), summed on the device on both paths and
+  read on the host only by ``profiling.counters``;
+  ``raymarch/iterations``, the loop's iterations run before its early
+  exit, and ``raymarch/syncs``, its alive checks, a host sync each: the
+  kernel path has no loop on the host and no sync, and adds 0 to both.
+
 Collision is the voxel-grid replacement of the PhysX contact-force
 termination test (env_train_gennbv.py:446): a pose collides iff any
 occupied render voxel lies under one of 27 probes on the cube of
 half-width `radius` around it.
-
-While spans record (``utils/profiling.recording``), ``raymarch`` counts
-its DDA iterations run before the early exit (``raymarch/iterations``)
-and its alive checks' host syncs (``raymarch/syncs``), summed over calls.
 """
 from __future__ import annotations
 
@@ -26,6 +42,7 @@ import math
 import torch
 
 from gennbv_tpu_torch.ops import fp32
+from gennbv_tpu_torch.ops import raymarch as march_kernel
 from gennbv_tpu_torch.utils import profiling
 
 # rays still alive are tested for an early end every this many DDA steps
@@ -40,7 +57,21 @@ def raymarch(occ_flat: torch.Tensor, box_lo: torch.Tensor,
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """occ_flat [..., R^3] (C-order, any dtype; > 0 is solid), box_lo,
     box_hi and origin [..., 3], dirs [..., P, 3] world ray directions ->
-    (depth [..., P], hit [..., P] bool); depth = depth_max where no hit."""
+    (depth [..., P], hit [..., P] bool); depth = depth_max where no hit.
+    The kernel on CUDA tensors, the plain loop elsewhere."""
+    if dirs.device.type == "cuda":
+        return march_kernel.raymarch(occ_flat, box_lo, box_hi, origin, dirs,
+                                     grid_res, max_steps, depth_max)
+    return raymarch_ref(occ_flat, box_lo, box_hi, origin, dirs, grid_res,
+                        max_steps, depth_max)
+
+
+def raymarch_ref(occ_flat: torch.Tensor, box_lo: torch.Tensor,
+                 box_hi: torch.Tensor, origin: torch.Tensor,
+                 dirs: torch.Tensor, grid_res: int, max_steps: int,
+                 depth_max: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain loop on any device: ``raymarch``'s arguments and
+    result."""
     lead = dirs.shape[:-2]
     p = dirs.shape[-2]
     b = math.prod(lead)
@@ -79,12 +110,17 @@ def raymarch(occ_flat: torch.Tensor, box_lo: torch.Tensor,
     strides = torch.tensor([r * r, r, 1], dtype=torch.int32, device=dirs.device)
     axes = torch.arange(3, device=dirs.device)
     iterations = syncs = 0
+    recording = profiling.recording()
+    reads = (torch.zeros((), dtype=torch.int64, device=dirs.device)
+             if recording else None)
     for i in range(max_steps):
         if i % _ALIVE_CHECK_EVERY == 0:
             syncs += 1
             if not bool(alive.any()):
                 break
         iterations += 1
+        if recording:
+            reads += alive.sum()
         flat = (voxel * strides).sum(-1, dtype=torch.int64)
         solid = torch.gather(occ, 1, flat) > 0
         new_hit = alive & solid & ~hit
@@ -100,9 +136,10 @@ def raymarch(occ_flat: torch.Tensor, box_lo: torch.Tensor,
         alive = alive & in_grid & ~hit
         # a dead ray's voxel may leave the grid: keep its read in range
         voxel = torch.where(alive[..., None], voxel, 0)
-    if profiling.recording():
+    if recording:
         profiling.count("raymarch/iterations", iterations)
         profiling.count("raymarch/syncs", syncs)
+        profiling.count("raymarch/voxel_reads", reads)
 
     depth = torch.where(hit, torch.clamp_max(t_hit, depth_max), depth_max)
     return depth.reshape(*lead, p), hit.reshape(*lead, p)

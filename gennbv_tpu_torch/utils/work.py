@@ -151,3 +151,12 @@ def count_kernel(work, *args) -> None:
     for mode in _get_current_dispatch_mode_stack():
         if isinstance(mode, WorkCounter):
             mode.add_kernel(work, args)
+
+
+def counting() -> bool:
+    """Whether a ``WorkCounter`` is active: a wrapper whose work it learns
+    only from its kernel (a count kept on the device) asks for it then.
+    Costs one C call when no mode is active."""
+    return bool(torch._C._len_torch_dispatch_stack()) and any(
+        isinstance(mode, WorkCounter)
+        for mode in _get_current_dispatch_mode_stack())

@@ -391,7 +391,7 @@ JAX_SMOKE_KEYS = {"metric", "value", "camera", "iter_seconds", "mfu",
 PORT_KEYS = {"iter_spacing_seconds", "peak", "minibatches_applied_per_iter",
              "kernel_launches", "setup_seconds", "device"}
 KERNELS = {"gather_image", "scatter_cells_any", "zbuf_visible",
-           "zbuf_scatter_min", "conv3d_wgrad"}
+           "zbuf_scatter_min", "conv3d_wgrad", "raymarch"}
 
 
 def test_smoke_cli_on_the_cpu():

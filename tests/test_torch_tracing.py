@@ -4,6 +4,7 @@ and units when on, on the profiler's clock; the Runner's, the rollout's,
 the env step's and the eval's spans and counters; the kernels' launch
 counts in the one counter store."""
 import test_torch_threads  # noqa: F401  (one torch thread a worker)
+import contextlib
 import json
 import os
 import time
@@ -112,7 +113,7 @@ def test_kernel_launches_live_in_the_counter_store():
     profiling.count("kernel/zbuf_visible/launches", 2)
     assert kernels.launches() == {"gather_image": 1, "scatter_cells_any": 0,
                                   "zbuf_visible": 2, "zbuf_scatter_min": 0,
-                                  "conv3d_wgrad": 0}
+                                  "conv3d_wgrad": 0, "raymarch": 0}
     assert profiling.counters("kernel/")["kernel/zbuf_visible/launches"] == 2
     kernels.reset_launches()
     assert set(kernels.launches().values()) == {0}
@@ -278,7 +279,7 @@ def test_a_count_made_on_the_device_is_summed_there_until_read():
 
 
 NEW_COUNTERS = ("raymarch/iterations", "raymarch/syncs",
-                "carve/bresenham_rays")
+                "raymarch/voxel_reads", "carve/bresenham_rays")
 
 
 def _env(mode: str, carve_mode: str) -> ReconEnv:
@@ -330,8 +331,10 @@ def test_the_march_and_carve_counters_count_what_the_call_did():
     """``raymarch/iterations``: the loop's iterations up to its early
     exit, the first alive check (one every 16) after the last voxel any
     ray read (the benchmark's own march counts the reads);
-    ``raymarch/syncs``: those checks; ``carve/bresenham_rays``: the hit
-    voxels, one ray each.  Off, they count nothing."""
+    ``raymarch/syncs``: those checks; ``raymarch/voxel_reads``: the voxels
+    the rays read, the benchmark's count itself, kept on the device;
+    ``carve/bresenham_rays``: the hit voxels, one ray each.  Off, they
+    count nothing, and the CPU's loop launches no kernel."""
     from benchmark.reference import env_exact
     from gennbv_tpu_torch.ops import carve, render
     g = torch.Generator().manual_seed(3)
@@ -352,14 +355,59 @@ def test_the_march_and_carve_counters_count_what_the_call_did():
         carve.carve_bresenham(hit, src, 20)
 
     before = profiling.counters()
+    launched = kernels.launches()["raymarch"]
     with profiling.tracing():
         call()
-    # the carve's count stays a sum on the device until counters reads it
+    # the carve's and the march's reads stay sums on the device until
+    # counters reads them
     assert "carve/bresenham_rays" in profiling._on_device
+    assert "raymarch/voxel_reads" in profiling._on_device
     after = profiling.counters()
     assert {k: after[k] - before.get(k, 0) for k in NEW_COUNTERS} == {
         "raymarch/iterations": iterations, "raymarch/syncs": syncs,
+        "raymarch/voxel_reads": int(reads.sum()),
         "carve/bresenham_rays": int(hit.sum())}
     assert 0 < iterations < cap and int(hit.sum()) > 0
     call()
     assert profiling.counters() == after
+    assert kernels.launches()["raymarch"] == launched
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_the_cpu_march_is_the_plain_loop(traced):
+    """On the CPU ``raymarch`` is ``raymarch_ref``, bit for bit, and never
+    counts a launch of the march's kernel, traced or not; the kernel's
+    wrapper refuses a CPU tensor."""
+    from gennbv_tpu_torch.ops import raymarch as march_kernel
+    from gennbv_tpu_torch.ops import render
+    g = torch.Generator().manual_seed(5)
+    r = 8
+    occ = (torch.rand(3, r ** 3, generator=g) < 0.05).to(torch.uint8)
+    lo, hi = torch.zeros(3, 3), torch.full((3, 3), 4.0)
+    origin = torch.tensor([[2.0, 2.0, 6.0], [-1.0, 1.0, 1.0], [2.0, 2.0, 2.0]])
+    dirs = torch.randn(3, 50, 3, generator=g)
+    args = (occ, lo, hi, origin, dirs, r, 3 * r, 20.0)
+    before = kernels.launches()["raymarch"]
+    with profiling.tracing() if traced else contextlib.nullcontext():
+        depth, hit = render.raymarch(*args)
+    want = render.raymarch_ref(*args)
+    assert torch.equal(depth, want[0]) and torch.equal(hit, want[1])
+    assert kernels.launches()["raymarch"] == before
+    with pytest.raises(ValueError, match="CUDA"):
+        march_kernel.raymarch(*args)
+
+
+def test_the_march_kernels_work_count():
+    """``ops/raymarch.work``: each grid once, 17 bytes a ray, 8 operations
+    a voxel read; ``utils/work.counting`` is true only inside a
+    WorkCounter, where the wrapper asks its kernel for the reads."""
+    from gennbv_tpu_torch.ops import raymarch as march_kernel
+    from gennbv_tpu_torch.utils import work
+    occ = torch.zeros(3, 8 ** 3, dtype=torch.uint8)
+    dirs = torch.zeros(3, 50, 3)
+    assert march_kernel.work(occ, dirs, torch.tensor(1000)) == (
+        3 * 512 + 17 * 150, 8 * 1000)
+    assert not work.counting()
+    with work.WorkCounter():
+        assert work.counting()
+    assert not work.counting()

@@ -27,9 +27,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    - phase 10's converted scenes: the three at the training set's Q
      (256 envs, 128x128) and at Q - 3 (the gather's scalar path), and at
      the held-out set's Q (50 envs, 400x400);
-   - the bench's 400x400 leg (phase 16: the flagship's 256 envs, Q =
-     11264, at 400x400): the fused splat, the hit scatter and the carve
-     gather;
+   - the flagship's 256 envs (Q = 11264) at the eval's 400x400 camera:
+     the fused splat, the hit scatter and the carve gather;
    - tools/bench_scatter.py's defaults (256 x 11264 at 128x128, its
      numpy draws): the scatter-min z-buffer;
    - the PPO update's minibatch of 128: the Conv3d weight gradient of
@@ -95,7 +94,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    replay) giving the rollout's and the iteration's device-busy share;
    then the update alone, KL-gated and not, timed to the device's end,
    and the gated one's device-busy share, top device ops and device
-   activities per minibatch over 32 minibatches;
+   activities per minibatch over 32 minibatches; then the recipe at the
+   400x400 camera (ref400.train's shape: constant learning rate, no eval,
+   no checkpoint) on a Runner of its own: one Runner.train iteration with
+   each kernel's launches held exactly, then one more under a
+   device-only profile, where each kernel's device launches must equal
+   the wrappers' counts, and the weight gradient's also the
+   WGRAD_CALLS_PER_STEP launches of each replay of the update's graph;
 8. the post-training report on phase 7's run directory:
    gennbv_tpu_torch/tools/post_run.py's main with --eval_cam 400
    --point_stride 8 --no-artifacts, at full size (held-out houses, objects
@@ -250,19 +255,6 @@ Phases, in order; any failure raises and the script exits non-zero:
       iteration's seconds;
    d. python -m gennbv_tpu_torch.tools.bench_scatter at its defaults:
       every form's line, the kernel bit-equal to the library scatter-min.
-16. the bench (gennbv_tpu_torch/bench.py, the port of the root bench.py)
-   in this process through its emit: 2 timed iterations of the flagship
-   training iteration at 128x128 with its phases, then its 400x400 leg
-   without them (the bench's own run times both legs' phases), each timed
-   window under a raw torch.profiler profile (device records only).
-   Prints the bench's two lines as they are and checks that both parse,
-   each leg's value > 0, 0 < mfu <= 1.05 and 0 < hbm_util <= 1.05 for the
-   iteration (and each phase of the headline), each timed window's kernel
-   launches (128 an iteration of the splat path's three, none of the
-   scatter-min) equal to the profiler's device launches over the same
-   window, and the run's launches in all.  (Its timings are taken under
-   the profiler: the bench's own numbers come from python -m
-   gennbv_tpu_torch.bench.)
 The meshes are converted before phase 3, which times the kernels at
 their Q.  The last two lines of stdout are the kernel summary with the card's name
 and power limit before them, then the result line
@@ -278,7 +270,6 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
-import functools
 import io
 import json
 import math
@@ -296,7 +287,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from gennbv_tpu_torch import bench, config, graft_entry, spec
+from gennbv_tpu_torch import config, graft_entry, spec
 from gennbv_tpu_torch.algo import (dqn, evaluation, gae, her, off_policy,
                                    on_policy_runner, ppo, rollout)
 from gennbv_tpu_torch.algo import replay_buffer as rb
@@ -362,9 +353,6 @@ TERRAIN_SCENES, TERRAIN_STEPS = 256, 16
 # phase 15: the exact z-buffer path's steps held to the CPU, its training
 # iterations
 EXACT_CPU_STEPS, EXACT_ITERS = 16, 2
-# phase 16: the bench's timed iterations of the headline leg (the 400x400
-# leg's are the bench's own 2), and its --budget-400, which both legs fit
-BENCH_ITERS, BENCH_BUDGET_S = 2, 900.0
 # tests/test_torch_legged.py's tolerance of a control step from the same
 # state (of each field's largest magnitude), and the fields it holds
 LEGGED_SCALE_TOL = 1e-3
@@ -457,11 +445,11 @@ WGRAD_MINIBATCH = 128
 WGRAD_REL_TOL = 2.0 ** -14
 
 
-def trained(expect: dict, learners: int = 1) -> dict:
+def trained(expect: dict) -> dict:
     """`expect` with conv3d_wgrad's calls in a run whose updates ran on a
-    card under `learners` Learners, each captured once."""
+    card under one Learner, captured once."""
     return {**expect, "conv3d_wgrad": WGRAD_CALLS_PER_STEP
-            * EAGER_STEPS_PER_CAPTURE * learners}
+            * EAGER_STEPS_PER_CAPTURE}
 
 
 def splat_expect(k: int) -> dict:
@@ -625,14 +613,14 @@ def _device_spans(prof, raw: bool) -> list:
 def _profiled(label: str, run, raw: bool = False):
     """Runs `run` under torch.profiler; returns its value and its device
     activities (user annotations excluded) in the order of their device
-    start.  With `raw` (a run of hundreds of thousands of kernels: whole
-    training iterations) the profile records no host activity and returns
+    start.  With `raw` (a run of hundreds of thousands of kernels: a whole
+    training iteration) the profile records no host activity and returns
     the device's as Spans.
 
     On the card, a profile taken in a process that has worked for a while
     can lose device records at either end of its session, more of them
-    the older the process, now and then all of them (measured by
-    gennbv_tpu_torch/tools/profile_loss.py).  So PROFILE_PADS spin
+    the older the process, now and then all of them (as measured on an
+    NVIDIA H100 80GB HBM3).  So PROFILE_PADS spin
     kernels of the profiler's own, each spinning PAD_CYCLES, are launched
     and finished on each side of `run`: its activities are those between
     the last leading pad and the first trailing one.  A profile that kept
@@ -1193,7 +1181,7 @@ def _ragged(inputs, q: int):
 def phase_kernels(eval_scenes, rollout_scenes,
                   dataset_scenes) -> tuple[dict, dict]:
     """Each kernel against its plain version on the inputs of a step of
-    the eval, of the rollout, of the bench's 400x400 leg, of the DDA step
+    the eval, of the rollout, of the rollout at 400x400, of the DDA step
     and of the converted scenes (dataset_scenes: {label: (scenes, image
     side)}); returns
     {kernel: {path: timings}} and the floor of the cold times (a trivial
@@ -1231,8 +1219,8 @@ def phase_kernels(eval_scenes, rollout_scenes,
             out["gather_image"][label] = gather_case(
                 f"{label}: gather_image [{n}x{hw}x{hw}] x [{n}x{qq}]", zbuf,
                 sp[0], sp[1])
-    # bench400: the bench's 400x400 leg, the flagship scenes at the eval's
-    # camera (the exact z-buffer does not run there)
+    # bench400: the flagship scenes at the eval's camera, the 400x400
+    # training shape (the exact z-buffer does not run there)
     for path, scenes, hw in (("eval", eval_scenes, EVAL_HW),
                              ("rollout", rollout_scenes, HW),
                              ("bench400", rollout_scenes, EVAL_HW)):
@@ -2007,6 +1995,59 @@ def phase_train(card: str, scenes, eval_scenes, log_dir: str) -> dict:
 
         _pipeline_window(card, runner)
         _profile_update(card, runner)
+    finally:
+        runner.close()
+    return counts
+
+
+def train400(card: str, scenes, log_dir: str) -> dict:
+    """The flagship recipe at the 400x400 camera on a Runner of its own,
+    without eval or checkpoints: one iteration with each kernel's launches
+    held exactly, then one more under a raw profile (_profiled) whose
+    device launches of each kernel must equal the wrappers' counts over
+    the same window, and the weight gradient's also WGRAD_CALLS_PER_STEP
+    a replay of the update's graph, which launches it without a call.
+    Returns the first iteration's launches."""
+    cfg = config.apply_overrides(train_config(), (
+        f"env.camera.height={EVAL_HW}", f"env.camera.width={EVAL_HW}",
+        "ppo.lr_schedule=constant", "runner.eval_freq=0",
+        "runner.eval_camera=0", "runner.save_freq=0"))
+    steps = 1 + cfg.ppo.n_steps          # the set-up's reset, a rollout
+    runner = Runner(cfg, scenes=scenes, log_dir=log_dir)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        runner.train(1, log=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launches()
+        if counts != trained(splat_expect(steps)):
+            raise AssertionError(f"train 400x400 launched {counts}, expected "
+                                 f"{trained(splat_expect(steps))}")
+        replays = [0]
+
+        def take():
+            reset_launches()
+            before = profiling.counters("update/").get("update/replays", 0)
+            runner.train(runner.iteration + 1, log=False)
+            replays[0] = profiling.counters("update/")["update/replays"] - before
+            return launches()
+
+        window, spans = _profiled("train 400x400: an iteration", take, raw=True)
+        seen = {name: sum(PORT_KERNEL_FUNCTIONS[name] in s.name
+                          for s in spans) for name in KERNELS}
+        want = {**window, "conv3d_wgrad": window["conv3d_wgrad"]
+                + WGRAD_CALLS_PER_STEP * replays[0]}
+        n_mb = cfg.ppo.n_epochs * cfg.ppo.n_steps * N_ENVS // cfg.ppo.batch_size
+        if window != splat_expect(steps) or replays[0] != n_mb or seen != want:
+            raise AssertionError(
+                f"train 400x400: the profiled iteration launched {seen} on the "
+                f"device (profiler); the wrappers counted {window} and "
+                f"{replays[0]} replays, expected {splat_expect(steps)} and "
+                f"{n_mb}")
+        print(f"train 400x400: the first iteration (with the capture) "
+              f"{secs:.3f} s; the second's kernel launches {seen} equal the "
+              f"profiler's, among {len(spans)} device activities [{card}]")
     finally:
         runner.close()
     return counts
@@ -4014,104 +4055,6 @@ def phase_exact_zbuf(card: str, scenes, eval_scenes,
     return counts, device_ms
 
 
-def _bench_window(windows: list):
-    """A ``window`` for bench.bench_config: the timed loop under a raw
-    profile (_profiled), raising unless each kernel's device launches
-    there equal the bench's own count of the same window, and the weight
-    gradient's, which the update's graph replays launch without a call,
-    WGRAD_CALLS_PER_STEP a replay; appends each window's (launches, device
-    activities, takes) to `windows`."""
-    def window(loop):
-        takes, replays = [], [0]
-
-        def take():
-            takes.append(None)
-            before = profiling.counters("update/").get("update/replays", 0)
-            win = loop()
-            replays[0] = (profiling.counters("update/")["update/replays"]
-                          - before)
-            return win
-
-        win, spans = _profiled("bench: timed window", take, raw=True)
-        seen = {name: sum(PORT_KERNEL_FUNCTIONS[name] in s.name
-                          for s in spans) for name in KERNELS}
-        want = {**win.launches, "conv3d_wgrad": win.launches["conv3d_wgrad"]
-                + WGRAD_CALLS_PER_STEP * replays[0]}
-        if seen != want:
-            raise AssertionError(f"bench: the timed window launched {seen} "
-                                 f"on the device (profiler), the bench "
-                                 f"counted {win.launches} and "
-                                 f"{replays[0]} replays")
-        windows.append((seen, len(spans), len(takes)))
-        return win
-    return window
-
-
-def _check_bench_line(label: str, res: dict, iters: int) -> None:
-    """A bench result's value, utilizations (the iteration's, and each
-    phase's where it has them) and window launches."""
-    want = splat_expect(N_STEPS * iters)
-    if not res.get("value", 0) > 0:
-        raise AssertionError(f"bench {label}: no positive value: {res}")
-    for part, r in (("iteration", res), *res.get("phases", {}).items()):
-        for key in ("mfu", "hbm_util"):
-            if not 0 < r[key] <= 1.05:
-                raise AssertionError(f"bench {label} {part}: {key} {r[key]} "
-                                     "outside (0, 1.05]")
-    if res["kernel_launches"] != want:
-        raise AssertionError(f"bench {label}: the timed window launched "
-                             f"{res['kernel_launches']}, expected {want}")
-
-
-def phase_bench(card: str) -> dict:
-    """python -m gennbv_tpu_torch.bench run in this process (iters=2, the
-    headline leg with its phases and the 400x400 leg without), each timed
-    window under a raw profile; returns each kernel's launches in the
-    whole run."""
-    t0 = time.perf_counter()
-    windows: list = []
-    out = io.StringIO()
-
-    def bench_fn(camera, iters, phases=True):
-        return bench.bench_config(camera=camera, iters=iters,
-                                  phases=phases and camera == HW,
-                                  window=_bench_window(windows))
-
-    reset_launches()
-    bench.emit(bench_fn, argparse.Namespace(
-        iters=BENCH_ITERS, skip_400=False, budget_400=BENCH_BUDGET_S), out=out)
-    counts = launches()
-    lines = out.getvalue().splitlines()
-    for line in lines:
-        print(line)
-    if len(lines) != 2:
-        raise AssertionError(f"bench: {len(lines)} lines, expected 2")
-    head, merged = (json.loads(line) for line in lines)
-    _check_bench_line("128x128", head, BENCH_ITERS)
-    _check_bench_line("400x400", merged["camera400"], 2)
-    if "phases" in merged["camera400"]:
-        raise AssertionError("bench 400x400: phases ran, expected none")
-    # a leg's env steps: the reset, the warm-up iteration, the timed
-    # window (each take of its profile) and the counted rollout; with the
-    # phases, the timed rollouts and the timed and the counted env steps
-    steps = sum(1 + N_STEPS * (1 + iters * takes + 1)
-                + phases * (N_STEPS * iters + 4 * iters + 1)
-                for iters, phases, (_, _, takes)
-                in zip((BENCH_ITERS, 2), (True, False), windows))
-    # each leg's Learner is captured once, and its counting pass runs one
-    # more minibatch step eagerly (bench._minibatch_step_work)
-    expect = trained(splat_expect(steps), learners=2)
-    expect["conv3d_wgrad"] += 2 * WGRAD_CALLS_PER_STEP
-    if counts != expect:
-        raise AssertionError(f"bench: launched {counts}, expected {expect}")
-    for (seen, spans, takes), leg in zip(windows, ("128x128", "400x400")):
-        print(f"bench {leg}: the timed window's kernel launches {seen} equal "
-              f"the profiler's, among {spans} device activities ({takes} "
-              f"take(s)) [{card}]")
-    print(f"phase 16: {time.perf_counter() - t0:.1f} s [{card}]")
-    return counts
-
-
 def phase_cache_pairs(card: str, scenes, pairs: int) -> None:
     """The full-size eval with the init-view cache (zbuf_impl=pallas) and
     without it (mxu), the same kernels on both, in interleaved pairs."""
@@ -4168,6 +4111,8 @@ def main() -> None:
         rollout_counts, rollout_ms = phase_rollout(card, rollout_scenes)
         eval_counts, eval_ms = phase_eval(card, eval_scenes)
         train_counts = phase_train(card, rollout_scenes, eval_scenes, run_dir)
+        train400_counts = train400(card, rollout_scenes,
+                                   os.path.join(run_dir, "train400"))
         report_counts, _ = phase_report(card, run_dir)
         dda_counts = phase_dda(card, rollout_scenes)
         dataset_counts = phase_dataset(card, dirs, data_root)
@@ -4179,15 +4124,14 @@ def main() -> None:
         print(f"phase 14: {time.perf_counter() - t0:.1f} s [{card}]")
         exact_counts, exact_ms = phase_exact_zbuf(card, rollout_scenes,
                                                   eval_scenes, data_root)
-        bench_counts = phase_bench(card)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
         shutil.rmtree(data_root, ignore_errors=True)
     by_path = {"rollout": rollout_counts, "eval": eval_counts,
-               "train": train_counts, "report": report_counts, **dda_counts,
+               "train": train_counts, "train400": train400_counts,
+               "report": report_counts, **dda_counts,
                **dataset_counts, "rsl": rsl_counts, **p12_counts,
-               **p13_counts, "mesh": mesh_counts, **exact_counts,
-               "bench": bench_counts}
+               **p13_counts, "mesh": mesh_counts, **exact_counts}
     # each kernel's device time a call, profiled on the path that runs it
     for name in KERNELS:
         if not eval_counts[name]:

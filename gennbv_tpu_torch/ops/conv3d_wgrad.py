@@ -89,10 +89,11 @@ def out_size(side: int) -> int:
 
 
 def work(x: torch.Tensor, dy: torch.Tensor) -> tuple[int, int]:
-    """The least a call must do, for its bound and the bench's count:
-    bytes -- X and dY read once, dW and db written once -- and operations,
-    a multiply and an add a (position, output channel, tap) and an add a
-    (position, output channel) for the bias."""
+    """The least a call must do, for its bound and
+    ``utils/work.WorkCounter``: bytes -- X and dY read once, dW and db
+    written once -- and operations, a multiply and an add a (position,
+    output channel, tap) and an add a (position, output channel) for the
+    bias."""
     n, cin = x.shape[:2]
     cout = dy.shape[1]
     positions = n * dy.shape[2] * dy.shape[3] * dy.shape[4]

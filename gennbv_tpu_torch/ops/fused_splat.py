@@ -50,11 +50,12 @@ def zbuf_visible_ref(vic, uic, z, ok, voxel_eps, height: int, width: int,
 
 def work(vic, uic, z, ok, voxel_eps, height: int,
          width: int) -> tuple[int, int]:
-    """The least a call must do on these inputs, for its bound and the
-    bench's count: bytes -- the validity of every point, the pixel and
-    depth of the valid ones, the slack; the z-buffer and the visibility
-    written once -- and operations, 19 per valid point (z range, digits,
-    key, visibility compare) and 16 per pixel (9-key min, decode)."""
+    """The least a call must do on these inputs, for its bound and
+    ``utils/work.WorkCounter``: bytes -- the validity of every point, the
+    pixel and depth of the valid ones, the slack; the z-buffer and the
+    visibility written once -- and operations, 19 per valid point (z range,
+    digits, key, visibility compare) and 16 per pixel (9-key min,
+    decode)."""
     n, q = z.shape
     nvalid = int(ok.sum())
     return (n * q + 12 * nvalid + 4 * n + 4 * n * height * width + n * q,

@@ -42,10 +42,10 @@ def gather_image_ref(img: torch.Tensor, vi: torch.Tensor,
 
 def work(img: torch.Tensor, vi: torch.Tensor,
          ui: torch.Tensor) -> tuple[int, int]:
-    """The least a call must do on these inputs, for its bound and the
-    bench's count: bytes -- each distinct pixel read once (4 B), the two
-    index arrays (8 B a query), the output (4 B a query) -- and
-    operations, two a query."""
+    """The least a call must do on these inputs, for its bound and
+    ``utils/work.WorkCounter``: bytes -- each distinct pixel read once
+    (4 B), the two index arrays (8 B a query), the output (4 B a query) --
+    and operations, two a query."""
     n, h, w = img.shape
     q = vi.shape[1]
     env = torch.arange(n, device=img.device)[:, None] * (h * w)

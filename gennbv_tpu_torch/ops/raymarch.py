@@ -38,10 +38,10 @@ OPS_PER_READ = 8
 
 def work(occ: torch.Tensor, dirs: torch.Tensor,
          reads: torch.Tensor) -> tuple[int, int]:
-    """The least a call must do on these inputs, for the bench's count:
-    bytes -- each env's grid read once, each ray's direction read (12 B),
-    its depth and hit written (5 B) -- and operations, OPS_PER_READ a voxel
-    read (`reads`, the kernel's count)."""
+    """The least a call must do on these inputs, for
+    ``utils/work.WorkCounter``: bytes -- each env's grid read once, each
+    ray's direction read (12 B), its depth and hit written (5 B) -- and
+    operations, OPS_PER_READ a voxel read (`reads`, the kernel's count)."""
     rays = dirs.numel() // 3
     return occ.numel() + 17 * rays, OPS_PER_READ * int(reads)
 

@@ -25,10 +25,7 @@ Counters, summed over calls (``utils/profiling.py``):
   ``raymarch/voxel_reads``, the voxels the rays read up to their first
   hit or their exit, at most ``max_steps`` a ray (the benchmark's own
   count of the march's work), summed on the device on both paths and
-  read on the host only by ``profiling.counters``;
-  ``raymarch/iterations``, the loop's iterations run before its early
-  exit, and ``raymarch/syncs``, its alive checks, a host sync each: the
-  kernel path has no loop on the host and no sync, and adds 0 to both.
+  read on the host only by ``profiling.counters``.
 
 Collision is the voxel-grid replacement of the PhysX contact-force
 termination test (env_train_gennbv.py:446): a pose collides iff any
@@ -109,16 +106,12 @@ def raymarch_ref(occ_flat: torch.Tensor, box_lo: torch.Tensor,
                        device=dirs.device)
     strides = torch.tensor([r * r, r, 1], dtype=torch.int32, device=dirs.device)
     axes = torch.arange(3, device=dirs.device)
-    iterations = syncs = 0
     recording = profiling.recording()
     reads = (torch.zeros((), dtype=torch.int64, device=dirs.device)
              if recording else None)
     for i in range(max_steps):
-        if i % _ALIVE_CHECK_EVERY == 0:
-            syncs += 1
-            if not bool(alive.any()):
-                break
-        iterations += 1
+        if i % _ALIVE_CHECK_EVERY == 0 and not bool(alive.any()):
+            break
         if recording:
             reads += alive.sum()
         flat = (voxel * strides).sum(-1, dtype=torch.int64)
@@ -137,8 +130,6 @@ def raymarch_ref(occ_flat: torch.Tensor, box_lo: torch.Tensor,
         # a dead ray's voxel may leave the grid: keep its read in range
         voxel = torch.where(alive[..., None], voxel, 0)
     if recording:
-        profiling.count("raymarch/iterations", iterations)
-        profiling.count("raymarch/syncs", syncs)
         profiling.count("raymarch/voxel_reads", reads)
 
     depth = torch.where(hit, torch.clamp_max(t_hit, depth_max), depth_max)

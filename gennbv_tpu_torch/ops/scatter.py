@@ -41,10 +41,10 @@ def scatter_cells_any_ref(idx: torch.Tensor, valid: torch.Tensor,
 
 
 def work(idx: torch.Tensor, valid: torch.Tensor, g: int) -> tuple[int, int]:
-    """The least a call must do on these inputs, for its bound and the
-    bench's count: bytes -- the validity of every point (1 B), the indices
-    of the valid ones (12 B), the grid written once (4 B a cell) -- and
-    operations, a flat index and a store per valid point."""
+    """The least a call must do on these inputs, for its bound and
+    ``utils/work.WorkCounter``: bytes -- the validity of every point (1 B),
+    the indices of the valid ones (12 B), the grid written once (4 B a cell)
+    -- and operations, a flat index and a store per valid point."""
     n, q, _ = idx.shape
     nvalid = int(valid.sum())
     return n * q + 12 * nvalid + 4 * n * g ** 3, 5 * nvalid

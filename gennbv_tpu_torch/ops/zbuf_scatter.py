@@ -65,10 +65,10 @@ def zbuf_scatter_min_ref(flat: torch.Tensor, zz: torch.Tensor, height: int,
 
 def work(flat: torch.Tensor, zz: torch.Tensor, height: int,
          width: int) -> tuple[int, int]:
-    """The least a call must do on these inputs, for its bound and the
-    bench's count: bytes -- each point's pixel index and depth (8 B), the
-    image written once (4 B a pixel) -- and operations, a band test and a
-    min a point and the fill of each pixel."""
+    """The least a call must do on these inputs, for its bound and
+    ``utils/work.WorkCounter``: bytes -- each point's pixel index and depth
+    (8 B), the image written once (4 B a pixel) -- and operations, a band
+    test and a min a point and the fill of each pixel."""
     n, q = flat.shape
     return 8 * n * q + 4 * n * height * width, 2 * n * q + n * height * width
 
@@ -171,8 +171,7 @@ def zbuf_scatter_min(flat: torch.Tensor, zz: torch.Tensor, height: int,
 def launch(flat: torch.Tensor, zz: torch.Tensor, height: int, width: int,
            fill: float, geo: Geometry) -> torch.Tensor:
     """The kernel on checked CUDA tensors (n > 0) with the geometry given,
-    which ``zbuf_scatter_min`` takes from ``geometry``;
-    ``tools/profile_wrappers.py`` also times other band heights."""
+    which ``zbuf_scatter_min`` takes from ``geometry``."""
     n, q = flat.shape
     out = torch.empty(n, height, width, dtype=torch.float32, device=flat.device)
     err = _cuda.launch(flat.get_device(), _launcher(), flat.data_ptr(),

@@ -14,9 +14,3 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout
     return out.strip().splitlines()[0]
-
-
-def card() -> dict:
-    """``card_line`` as {"name", "power_limit"}."""
-    name, limit = card_line().rsplit(",", 1)
-    return {"name": name.strip(), "power_limit": limit.strip()}

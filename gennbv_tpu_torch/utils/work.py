@@ -99,7 +99,7 @@ def _is_view(func) -> bool:
 
 def _check_float32(func, args) -> None:
     """Raises unless a matmul or convolution computes in float32 without
-    TF32, the type whose peak the bench reads its FLOPs against."""
+    TF32, the type whose peak its FLOPs are read against."""
     x = next(t for t in tree_leaves(args) if isinstance(t, torch.Tensor))
     tf32 = x.is_cuda and (
         torch.backends.cudnn.allow_tf32

@@ -5,8 +5,8 @@ use, the exact z-buffer env against the CPU, a PPO update against the same updat
 two trainings from one seed; the drone, the legged robots (plane and
 rough terrain) and the recurrent actor-critic against the CPU, and two
 recurrent trainings from one seed; SAC, TD3 and DQN updates and a HER
-relabeled sample against the CPU, and two DQN trainings from one seed;
-the bench at its smoke shapes.  They skip on a machine without one.  This file imports no jax, so it
+relabeled sample against the CPU, and two DQN trainings from one seed.
+They skip on a machine without one.  This file imports no jax, so it
 also runs where jax is missing; tests/conftest.py imports jax, so there run
 it without the conftest:
 
@@ -1087,23 +1087,3 @@ def test_mesh_update_on_one_card_over_nccl(cuda, tmp_path):
         dist.destroy_process_group()
     R.held_update(got, want)
 
-
-def test_bench_at_smoke_shapes_on_card(cuda):
-    """gennbv_tpu_torch.bench at its --smoke shapes on the card: the timed
-    window launches each kernel of the splat path once an env step and
-    never the scatter-min, the counted work is the card's (the update's
-    graph replays counted as eager steps), and the line names the card."""
-    from gennbv_tpu_torch import bench
-    res = bench.bench_config(camera=16, iters=2, num_envs=8, resolution=16,
-                             n_steps=4, batch_size=16)
-    assert res["kernel_launches"] == {"gather_image": 8,
-                                      "scatter_cells_any": 8,
-                                      "zbuf_visible": 8,
-                                      "zbuf_scatter_min": 0,
-                                      "conv3d_wgrad": 0, "raymarch": 0}
-    assert res["value"] > 0 and res["tflops_per_iter"] >= 0
-    assert res["gbytes_per_iter"] > 0
-    assert res["peak"]["type"] == "float32"
-    assert res["device"]["name"] == torch.cuda.get_device_name(0)
-    for phase in res["phases"].values():
-        assert phase["seconds"] > 0 and phase["gbytes_per_iter"] > 0

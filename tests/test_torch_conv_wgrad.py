@@ -215,7 +215,7 @@ def test_launches_list_the_kernel_and_the_cpu_counts_none():
 
 
 def test_work_counter_counts_the_backward_as_before(monkeypatch):
-    """The bench's count of an encoder step: the same FLOPs through the
+    """The work counter's count of an encoder step: the same FLOPs through the
     Function as through plain autograd (the CPU takes aten's calls, which
     the counter sees)."""
     enc = _encoder(4).train()

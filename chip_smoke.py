@@ -6,7 +6,7 @@
 Phases, in order; any failure raises and the script exits non-zero:
 1. a CUDA card must be present; print its name and power limit, the torch
    version and nvcc's;
-2. build the five kernels from gennbv_tpu_torch/csrc, one nvcc process per
+2. build the seven kernels from gennbv_tpu_torch/csrc, one nvcc process per
    source, all started together (each timed), and print what ptxas says
    of each kernel (registers, shared memory, spills);
 3. hold each kernel bit-equal to its plain PyTorch version at the shapes of
@@ -39,6 +39,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      at two device launches a call (the partial sums and their
      reduction), with torch.nn.grad.conv3d_weight under the port's
      deterministic cuDNN settings as the library call;
+   - the DDA ray march at dda400.eval's step (50 eval scenes, 400x400,
+     R=64) and at the DDA rollout's (256 envs, 128x128), held to the
+     benchmark's exact march too;
+   - the Bresenham carve at the same two steps (the hits of the march's
+     depth in the 20^3 grid, from the camera voxels), a zero fill and one
+     launch of its kernel a call, held to the benchmark's closed form too;
    and the gather once more on an image with planted values (bf16 ties,
    -0.0, a negative, empty pixels), and, without timing, at its edge
    cases at both image sizes: q of 1, 3 and 4, a ragged q and index
@@ -122,7 +128,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    seeded generator, reset + 16 collected steps with renderer.mode=dda,
    once with carve_mode=ztest and once with bresenham.  Checks each
    kernel's exact launches a step (the hit scatter once, the gather twice
-   with ztest and never with bresenham, the splat never), holds 2 envs'
+   with ztest and never with bresenham, the Bresenham kernel once with
+   bresenham and never with ztest, the splat never), holds 2 envs'
    step outputs and states to the port on the CPU over the same steps,
    records a replay bank at the visited poses with the card's DDA and
    requires a replay env to equal the dda env bit for bit, and a
@@ -309,8 +316,8 @@ from gennbv_tpu_torch.models import actor_critic, gaussian
 from gennbv_tpu_torch.models.actor_critic import GaussianActorCritic
 from gennbv_tpu_torch.models.policy import ActorCriticPolicy
 from gennbv_tpu_torch.models import distributions
-from gennbv_tpu_torch.ops import (_cuda, backproject, camera, carve,
-                                  conv3d_wgrad, fp32,
+from gennbv_tpu_torch.ops import (_cuda, backproject, bresenham, camera,
+                                  carve, conv3d_wgrad, fp32,
                                   fused_splat, gather, render, scatter, splat,
                                   voxel, zbuf_scatter)
 from gennbv_tpu_torch.ops.kernels import WRAPPERS, launches, reset_launches
@@ -415,6 +422,8 @@ KERNELS = {
     "conv3d_wgrad": ("gennbv_tpu_torch/csrc/conv3d_wgrad.cu", None),
     # no TPU kernel: the JAX package's ray march is an XLA loop
     "raymarch": ("gennbv_tpu_torch/csrc/raymarch.cu", None),
+    # no TPU kernel: the JAX package's Bresenham carve is an XLA loop
+    "bresenham": ("gennbv_tpu_torch/csrc/bresenham.cu", None),
 }
 assert set(KERNELS) == set(WRAPPERS)
 
@@ -428,6 +437,7 @@ PORT_KERNEL_FUNCTIONS = {
     "zbuf_scatter_min": "zbuf_scatter_min_kernel",
     "conv3d_wgrad": "conv3d_wgrad_partial_kernel",
     "raymarch": "raymarch_kernel",
+    "bresenham": "bresenham_kernel",
 }
 WGRAD_REDUCE_FUNCTION = "conv3d_wgrad_reduce_kernel"
 # the conv3d_wgrad wrapper's calls a minibatch step (the encoder's two
@@ -456,9 +466,11 @@ def splat_expect(k: int) -> dict:
     """Each kernel's launches in a run of k env steps (resets and init-view
     caches counted as steps) on the splat path under zbuf_impl mxu or
     pallas: the fused splat, the hit scatter and the carve gather once a
-    step; the exact scatter-min z-buffer and the ray march never."""
+    step; the exact scatter-min z-buffer, the ray march and the Bresenham
+    carve never."""
     return {"gather_image": k, "scatter_cells_any": k, "zbuf_visible": k,
-            "zbuf_scatter_min": 0, "conv3d_wgrad": 0, "raymarch": 0}
+            "zbuf_scatter_min": 0, "conv3d_wgrad": 0, "raymarch": 0,
+            "bresenham": 0}
 
 
 def exact_zbuf_expect(k: int) -> dict:
@@ -466,7 +478,8 @@ def exact_zbuf_expect(k: int) -> dict:
     the scatter-min z-buffer once a step, the gather twice (the visibility
     and the carve), the hit scatter once, the fused splat never."""
     return {"gather_image": 2 * k, "scatter_cells_any": k, "zbuf_visible": 0,
-            "zbuf_scatter_min": k, "conv3d_wgrad": 0, "raymarch": 0}
+            "zbuf_scatter_min": k, "conv3d_wgrad": 0, "raymarch": 0,
+            "bresenham": 0}
 
 
 def phase_device() -> str:
@@ -956,6 +969,79 @@ def march_case(label: str, scenes, cam: config.CameraConfig) -> dict:
     return res
 
 
+def carve_args(scenes, cam: config.CameraConfig):
+    """The Bresenham carve's arguments at a DDA step of every scene of
+    `scenes` under `cam`, each seen from a pose of _step_poses, as
+    carve_bresenham builds them: (camera voxels [N, 3], the G^3 grid's
+    voxels [G^3, 3], the hit voxels of the march's depth [N, G^3], G)."""
+    poses, _, _, _ = _step_poses(scenes, cam)
+    (idx, in_bounds), _ = _dda_step_inputs(scenes, cam)
+    hit = voxel.scatter_hits(G, idx, in_bounds)
+    src = voxel.pose_to_voxel_idx(poses[:, :3], scenes.range_gt,
+                                  scenes.voxel_size)
+    return (src, carve.grid_voxels(G, src.device),
+            hit.reshape(hit.shape[0], -1) > 0.5, G)
+
+
+def carve_case(label: str, scenes, cam: config.CameraConfig) -> dict:
+    """The Bresenham carve's kernel on carve_args(scenes, cam): bit-equal
+    to the plain loop on the card and to the benchmark's closed form
+    (benchmark/reference/env_exact.bresenham); a call is one zero fill and
+    one launch of bresenham_kernel (torch.profiler); timed as _case times
+    a kernel beside the plain loop, the bound ops/bresenham.work's."""
+    from benchmark.reference import env_exact
+    args = carve_args(scenes, cam)
+    src, _, valid, g = args
+    n = src.shape[0]
+    kernel = lambda: bresenham.bresenham(*args)
+    plain = lambda: carve.bresenham_traversed_ref(*args)
+    got = kernel()
+    _equal(label, (got,), (plain(),))
+    closed = env_exact.bresenham(valid.float().reshape(n, g, g, g),
+                                 src.long(), g)
+    if not torch.equal(got, closed):
+        raise AssertionError(f"{label}: kernel differs from the benchmark's "
+                             "closed form")
+    calls = 10
+
+    def run():
+        for _ in range(calls):
+            kernel()
+
+    kernel()
+    _, spans = _profiled(label, run)
+    fn = PORT_KERNEL_FUNCTIONS["bresenham"]
+    carves = [e for e in spans if fn in e.name]
+    if len(carves) != calls or len(spans) != 2 * calls:
+        raise AssertionError(f"{label}: {len(spans)} device records and "
+                             f"{len(carves)} launches of {fn} in {calls} "
+                             f"calls ({sorted({e.name for e in spans})}), "
+                             "expected a fill and a launch a call")
+
+    def device_ms(records):
+        return sum(e.time_range.end - e.time_range.start
+                   for e in records) / calls / 1e3
+
+    bound_ms, bound_by = _bound(*bresenham.work(*args))
+    res = {"max_abs_err": 0.0, "ms": _time_ms(kernel),
+           "plain_ms": _time_ms(plain, trials=5, calls=2),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "cold_ms": _time_cold_ms(kernel),
+           "cold_dirty_ms": _time_cold_ms(kernel, flush="zero"),
+           "device_launches_per_call": 2, "kernel_device_ms": device_ms(carves),
+           "call_device_ms": device_ms(spans),
+           "rays": int(valid.sum()), "cells_carved": int(got.sum())}
+    print(f"{label}: kernel {res['ms']:.4f} ms (cold {res['cold_ms']:.4f} ms, "
+          f"dirty {res['cold_dirty_ms']:.4f} ms), plain loop "
+          f"{res['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+          f"(median, CUDA events); a zero fill and 1 launch a call, "
+          f"{res['kernel_device_ms']:.4f} ms of the kernel's device time, "
+          f"{res['call_device_ms']:.4f} ms with the fill (profiler); "
+          f"{res['rays']} rays, {res['cells_carved']} cells carved; "
+          "bit-equal to the plain loop and to the benchmark's closed form")
+    return res
+
+
 def exact_zbuf_inputs(vic, uic, z, ok, w, depth_max):
     """What zbuf_scatter_vis_px hands the scatter-min: each point's pixel
     in its env's image and its depth, depth_max where it is not valid."""
@@ -1260,13 +1346,17 @@ def phase_kernels(eval_scenes, rollout_scenes,
         out["conv3d_wgrad"][f"update_conv{layer}"] = wgrad_case(
             f"update: conv3d_wgrad, layer {layer}: x {list(x.shape)}, dy "
             f"{list(dy.shape)}", x, dy)
-    # the ray march at dda400.eval's step (50 envs, 400x400, R=64) and at
-    # the DDA rollout's (256 envs, 128x128)
+    # the ray march and the Bresenham carve at dda400.eval's step (50
+    # envs, 400x400, R=64) and at the DDA rollout's (256 envs, 128x128)
     for path, scenes, hw in (("eval", eval_scenes, EVAL_HW),
                              ("rollout", rollout_scenes, HW)):
         out["raymarch"][path] = march_case(
             f"{path}: raymarch [{scenes.num_scenes}x{hw * hw}] rays, "
             f"R={scenes.grid_res}", scenes,
+            config.CameraConfig(height=hw, width=hw))
+        out["bresenham"][path] = carve_case(
+            f"{path}: bresenham [{scenes.num_scenes}x{G ** 3}] target slots "
+            f"of the hits at {hw}x{hw}", scenes,
             config.CameraConfig(height=hw, width=hw))
     planted_gather_case(G ** 3)
     paths = [gather_edge_case(*case) for case in GATHER_EDGES]
@@ -2303,11 +2393,13 @@ def dda_config(carve_mode: str, mode: str = "dda") -> config.EnvConfig:
 def dda_expect(carve_mode: str, mode: str = "dda") -> dict:
     """Each kernel's launches a step of the DDA, replay and callback paths:
     the hit scatter once; the gather of the depth and of the hit mask with
-    the z-test carve, none with Bresenham's; the ray march once on the DDA
-    path, never on the others; no splat and no scatter-min z-buffer."""
+    the z-test carve, none with Bresenham's; the Bresenham kernel once with
+    Bresenham's carve, never with the z-test; the ray march once on the
+    DDA path, never on the others; no splat and no scatter-min z-buffer."""
     return {"gather_image": 2 if carve_mode == "ztest" else 0,
             "scatter_cells_any": 1, "zbuf_visible": 0, "zbuf_scatter_min": 0,
-            "conv3d_wgrad": 0, "raymarch": int(mode == "dda")}
+            "conv3d_wgrad": 0, "raymarch": int(mode == "dda"),
+            "bresenham": int(carve_mode == "bresenham")}
 
 
 def _step_counted(env, state, actions, expect: dict, label: str):

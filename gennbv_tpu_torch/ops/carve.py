@@ -13,16 +13,24 @@ Both give a {0,1} traversed mask; the fused grid update is
 ``prob' = where(hit, 1.0, prob - 0.05 * traversed)``
 (env_train_gennbv.py:311-314: the occupied overwrite wins).
 
+The device of the tensors picks the Bresenham implementation.  CUDA
+tensors take a zero fill and one launch of the hand-written kernel
+``csrc/bresenham.cu``, a thread a ray (``ops/bresenham.py``); every other
+device runs the plain loop ``bresenham_traversed_ref``.  Both give the
+same bits (``tests/test_torch_bresenham_kernel.py`` holds them equal on
+a card).  ``carve_bresenham`` reaches either through the module's name
+``bresenham_traversed``, which the benchmark's fault hooks patch.
+
 While spans record (``utils/profiling.recording``), ``bresenham_traversed``
 counts the valid rays it marches (``carve/bresenham_rays``, summed on the
-device).
+device), on both paths.
 """
 from __future__ import annotations
 
 import torch
 
 from gennbv_tpu_torch import spec
-from gennbv_tpu_torch.ops import fp32, gather
+from gennbv_tpu_torch.ops import bresenham, fp32, gather
 from gennbv_tpu_torch.ops.camera import pixel_index
 from gennbv_tpu_torch.utils import profiling
 
@@ -32,18 +40,30 @@ def bresenham_traversed(src: torch.Tensor, targets: torch.Tensor,
                         ) -> torch.Tensor:
     """src [N, 3] int32 camera voxels (may lie outside the grid), targets
     [R, 3] or [N, R, 3] int32 in-grid target voxels, target_valid [N, R]
-    -> [N, G, G, G] {0,1} float mask of the voxels any valid ray visits.
+    bool -> [N, G, G, G] {0,1} float mask of the voxels any valid ray
+    visits.  The kernel on CUDA tensors, the plain loop elsewhere."""
+    if profiling.recording():
+        profiling.count("carve/bresenham_rays", target_valid.sum())
+    if src.device.type == "cuda":
+        return bresenham.bresenham(src, targets, target_valid, grid_size)
+    return bresenham_traversed_ref(src, targets, target_valid, grid_size)
+
+
+def bresenham_traversed_ref(src: torch.Tensor, targets: torch.Tensor,
+                            target_valid: torch.Tensor, grid_size: int
+                            ) -> torch.Tensor:
+    """The plain loop on any device: ``bresenham_traversed``'s arguments
+    and result.
 
     Every ray runs 3G steps (spec.BRESENHAM_MAX_PTS_FACTOR * G, the
     reference's max_pts_per_ray, utils.py:37), emitting its current voxel
-    before it advances, as the CUDA kernel records before stepping.  The
-    dominant axis is picked with the kernel's tie-break order (x, then y,
-    then z; utils.py:69-164).  The mask is marked step by step (a
-    scatter of 1.0, order-free) instead of stacking the scan's indices."""
+    before it advances, as the reference's CUDA kernel records before
+    stepping.  The dominant axis is picked with that kernel's tie-break
+    order (x, then y, then z; utils.py:69-164).  The mask is marked step
+    by step (a scatter of 1.0, order-free) instead of stacking the scan's
+    indices."""
     g = grid_size
     n = src.shape[0]
-    if profiling.recording():
-        profiling.count("carve/bresenham_rays", target_valid.sum())
     targets = targets.to(torch.int32).expand(n, -1, 3)
     delta = targets - src.to(torch.int32)[:, None, :]           # [N, R, 3]
     d = delta.abs()
@@ -82,11 +102,31 @@ def carve_bresenham(hit_grid: torch.Tensor, cam_voxel: torch.Tensor,
                     grid_size: int) -> torch.Tensor:
     """[N, G, G, G] traversed mask of exact Bresenham rays from cam_voxel
     [N, 3] int32 to every hit voxel of hit_grid [N, G, G, G] {0,1}."""
-    g = grid_size
-    ar = torch.arange(g, dtype=torch.int32, device=hit_grid.device)
-    targets = torch.cartesian_prod(ar, ar, ar)                  # [G^3, 3]
     valid = hit_grid.reshape(hit_grid.shape[0], -1) > 0.5
-    return bresenham_traversed(cam_voxel, targets, valid, g)
+    return bresenham_traversed(cam_voxel,
+                               grid_voxels(grid_size, hit_grid.device), valid,
+                               grid_size)
+
+
+# grid_voxels' tables by (G, device); each is only read
+_GRID_VOXELS: dict = {}
+
+
+def grid_voxels(grid_size: int, device: torch.device) -> torch.Tensor:
+    """[G^3, 3] int32: every voxel of the grid in C order, the Bresenham
+    carve's targets.  Made once a (G, device) and kept, so a step does not
+    launch its build; made afresh while the current CUDA stream is being
+    captured into a graph, where a new tensor holds its values only in the
+    graph's replays."""
+    device = torch.device(device)
+    key = (grid_size, device)
+    if key in _GRID_VOXELS:
+        return _GRID_VOXELS[key]
+    ar = torch.arange(grid_size, dtype=torch.int32, device=device)
+    table = torch.cartesian_prod(ar, ar, ar)
+    if device.type != "cuda" or not torch.cuda.is_current_stream_capturing():
+        _GRID_VOXELS[key] = table
+    return table
 
 
 def project_centers_px(voxel_centers, k, r_c2w, t_c2w, height: int, width: int):

@@ -4,8 +4,8 @@ each wrapper adds one to its counter ``kernel/<name>/launches``
 else."""
 from __future__ import annotations
 
-from gennbv_tpu_torch.ops import (conv3d_wgrad, fused_splat, gather,
-                                  raymarch, scatter, zbuf_scatter)
+from gennbv_tpu_torch.ops import (bresenham, conv3d_wgrad, fused_splat,
+                                  gather, raymarch, scatter, zbuf_scatter)
 from gennbv_tpu_torch.utils import profiling
 
 WRAPPERS = {
@@ -15,6 +15,7 @@ WRAPPERS = {
     "zbuf_scatter_min": zbuf_scatter.zbuf_scatter_min,
     "conv3d_wgrad": conv3d_wgrad.conv3d_wgrad,
     "raymarch": raymarch.raymarch,
+    "bresenham": bresenham.bresenham,
 }
 
 

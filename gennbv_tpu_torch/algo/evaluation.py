@@ -115,7 +115,9 @@ def batched_accuracy(deduped, gt_pts, gt_mask, vox, group: int | None = None,
     set, and every derived metric, equals the per-env form's.  Envs go in
     groups of `group` (None: the JAX package's choice from the padded
     point count); the query rows of a pass are sized so that its
-    squared-distance transient stays near 1 GB.
+    squared-distance transient stays near 1 GB.  The three passes, their
+    copies to the host included, lie in the device-timed span
+    ``eval/accuracy/nn``.
 
     Args: deduped - list of N [Pi, 3] arrays (rounded and deduped scan
     points, possibly empty); gt_pts/gt_mask - [N, Pg, 3]/[N, Pg]
@@ -154,16 +156,17 @@ def batched_accuracy(deduped, gt_pts, gt_mask, vox, group: int | None = None,
                 for s in range(0, n, group)]
         return np.concatenate(outs)
 
-    scan_nn = grouped(chamfer.nn_sq_dists, scan_t, smask_t, gt_t, gm_t)
-    gt_nn = grouped(chamfer.nn_sq_dists, gt_t, gm_t, scan_t, smask_t)
-    # floor of the scan->gt direction: the GT sampling's own NN^2.  A
-    # surface-exact scan point still measures ~floor/4 to the nearest GT
-    # sample.  Its mean is taken here on the host, as the others are, so
-    # the card's result equals the CPU's (the JAX package sums it on the
-    # device, in XLA's order).
-    gt_self_nn = grouped(lambda a, am, b, bm, chunk:
-                         chamfer.self_nn_sq_dists(a, am, chunk),
-                         gt_t, gm_t, gt_t, gm_t)
+    with profiling.device_span("eval/accuracy/nn", device):
+        scan_nn = grouped(chamfer.nn_sq_dists, scan_t, smask_t, gt_t, gm_t)
+        gt_nn = grouped(chamfer.nn_sq_dists, gt_t, gm_t, scan_t, smask_t)
+        # floor of the scan->gt direction: the GT sampling's own NN^2.  A
+        # surface-exact scan point still measures ~floor/4 to the nearest
+        # GT sample.  Its mean is taken here on the host, as the others
+        # are, so the card's result equals the CPU's (the JAX package sums
+        # it on the device, in XLA's order).
+        gt_self_nn = grouped(lambda a, am, b, bm, chunk:
+                             chamfer.self_nn_sq_dists(a, am, chunk),
+                             gt_t, gm_t, gt_t, gm_t)
 
     def mmean(d, m):
         return np.where(m.any(axis=1),
@@ -221,7 +224,9 @@ def run_episodes(env, policy: torch.nn.Module, point_stride: int = 8,
     after).  With ``compute_accuracy`` each view's strided sub-rays are
     also ray-marched and back-projected before its step.  The spans
     ``eval/reset``, ``eval/step`` a step and ``eval/fetch`` (the copies to
-    the host, the wait for the device)."""
+    the host, the wait for the device); with ``compute_accuracy``,
+    ``eval/scan`` (device-timed) around each view's scan, the reset's
+    included."""
     n = env.cfg.num_envs
     was_training = policy.training
     policy.eval()
@@ -233,7 +238,9 @@ def run_episodes(env, policy: torch.nn.Module, point_stride: int = 8,
                 obs = reset_out.obs
                 if compute_accuracy:
                     sub_rays = scan_rays(env, point_stride)
-                    pts, valid = _init_points(env, state.scene_id, sub_rays)
+                    with profiling.device_span("eval/scan", env.device):
+                        pts, valid = _init_points(env, state.scene_id,
+                                                  sub_rays)
                     scan_pts.append(pts)
                     scan_valid.append(valid)
             steps = []
@@ -241,9 +248,10 @@ def run_episodes(env, policy: torch.nn.Module, point_stride: int = 8,
                 with profiling.span("eval/step"):
                     actions = distributions.mode(policy(obs).logits)
                     if compute_accuracy:
-                        pts, valid = scan_points(
-                            env, state.scene_id,
-                            step_poses(env, state, actions), sub_rays)
+                        with profiling.device_span("eval/scan", env.device):
+                            pts, valid = scan_points(
+                                env, state.scene_id,
+                                step_poses(env, state, actions), sub_rays)
                         scan_pts.append(pts)
                         scan_valid.append(valid)
                     state, out = env.step(state, actions)
@@ -275,17 +283,23 @@ def before_done_mask(dones: np.ndarray) -> np.ndarray:
 
 def episode_accuracy(env, ep: Episodes):
     """The six accuracy metrics of batched_accuracy for the episodes'
-    scans, on the env's device."""
+    scans, on the env's device.  The span ``eval/accuracy`` (→
+    ``eval/accuracy/dedupe``, the host's dedupe, and
+    ``eval/accuracy/nn``, device-timed, the NN passes); the deduped
+    points, summed over the envs, counted in ``accuracy/scan_points``."""
     sc = env.scenes
     sids = ep.scene_id
-    deduped = episode_scans(ep.scan_pts, ep.scan_valid,
-                            before_done_mask(ep.dones))
-    box_lo = sc.box_lo[sids].cpu().numpy()
-    box_hi = sc.box_hi[sids].cpu().numpy()
-    vox = (box_hi - box_lo).max(axis=1) / sc.grid_res
-    return batched_accuracy(
-        deduped, sc.gt_points[sids].cpu().numpy(),
-        sc.gt_points_mask[sids].cpu().numpy(), vox, device=env.device)
+    with profiling.span("eval/accuracy"):
+        with profiling.span("eval/accuracy/dedupe"):
+            deduped = episode_scans(ep.scan_pts, ep.scan_valid,
+                                    before_done_mask(ep.dones))
+        profiling.count("accuracy/scan_points", sum(map(len, deduped)))
+        box_lo = sc.box_lo[sids].cpu().numpy()
+        box_hi = sc.box_hi[sids].cpu().numpy()
+        vox = (box_hi - box_lo).max(axis=1) / sc.grid_res
+        return batched_accuracy(
+            deduped, sc.gt_points[sids].cpu().numpy(),
+            sc.gt_points_mask[sids].cpu().numpy(), vox, device=env.device)
 
 
 def evaluate(env, policy: torch.nn.Module, point_stride: int = 8,

@@ -13,6 +13,10 @@ rounds ``sum((a - b) ** 2)`` in the jitted JAX function (a chain of fused
 multiply-adds, ``ops/fp32.py``), so the per-point minima equal the
 reference's on the CPU and are the same on the card.  Every function
 takes optional leading batch axes (envs).
+
+The counter ``accuracy/nn_pairs`` (``utils/profiling.py``, a host
+integer) sums the point pairs whose squared distance is computed: query
+rows times target columns of every chunk, batch and padding included.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from gennbv_tpu_torch.ops import fp32
+from gennbv_tpu_torch.utils import profiling
 
 _BIG = 1e10
 
@@ -53,6 +58,7 @@ def _row_mins(a, a_mask, b, b_mask, chunk: int, exclude_self: bool = False):
     b, b_mask = b[..., :kb, :], b_mask[..., :kb]
     for i0 in range(0, _extent(a_mask), chunk):
         d = _sq_dists(a[..., i0:i0 + chunk, :], b)
+        profiling.count("accuracy/nn_pairs", d.numel())
         d = torch.where(b_mask[..., None, :], d, _BIG)
         if exclude_self:
             rows = torch.arange(i0, i0 + d.shape[-2], device=a.device)

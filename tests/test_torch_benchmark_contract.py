@@ -62,9 +62,10 @@ def _tiny_env(**kw) -> pt_config.EnvConfig:
 @pytest.fixture(scope="module")
 def recorded(tmp_path_factory):
     """The span names of a traced one-iteration ``Runner.train``, a
-    traced ``evaluate`` episode and a traced env step on the DDA march
-    with the Bresenham carve; the keys the Runner wrote to
-    ``metrics.jsonl`` with a positive value; the kernels of ``csrc``."""
+    traced ``evaluate`` episode with the accuracy scan (the report's
+    path) and a traced env step on the DDA march with the Bresenham
+    carve; the keys the Runner wrote to ``metrics.jsonl`` with a positive
+    value; the kernels of ``csrc``; the counters the three counted."""
     log_dir = tmp_path_factory.mktemp("contract") / "run"
     cfg = pt_config.Config(
         env=pt_config.EnvConfig(
@@ -79,7 +80,7 @@ def recorded(tmp_path_factory):
     eval_env = _tiny_env(renderer=pt_config.RendererConfig(resolution=16))
     dda_env = _tiny_env(carve_mode="bresenham", renderer=pt_config.
                         RendererConfig(mode="dda", resolution=16))
-    t0 = time.time_ns()
+    t0, counted = time.time_ns(), profiling.counters()
     with profiling.tracing():
         r = runner.Runner(cfg, log_dir=str(log_dir), device="cpu")
         r.train(1)
@@ -87,7 +88,7 @@ def recorded(tmp_path_factory):
         env = ReconEnv(eval_env, make_scenes(eval_env.scene, 16, "cpu"))
         policy = ActorCriticPolicy(pt_config.ModelConfig(**NARROW), None,
                                    "cpu")
-        evaluation.evaluate(env, policy, compute_accuracy=False)
+        evaluation.evaluate(env, policy, point_stride=2)
         env = ReconEnv(dda_env, make_scenes(dda_env.scene, 16, "cpu"))
         env.step(env.init_state(3), env.init_action.expand(3, 6))
     spans = {s.name for s in profiling.spans() if s.start_ns >= t0}
@@ -97,12 +98,16 @@ def recorded(tmp_path_factory):
                 if isinstance(v, (int, float)) and v > 0}
     kernels = {fn for cu in CSRC.glob("*.cu")
                for fn in GLOBAL_FN.findall(cu.read_text())}
-    return {"spans": spans, "metrics.jsonl": positive, "csrc": kernels}
+    counters = {k for k, v in profiling.counters().items()
+                if v > counted.get(k, 0)}
+    return {"spans": spans, "metrics.jsonl": positive, "csrc": kernels,
+            "counters": counters}
 
 
 @pytest.mark.parametrize("name", _read_names())
 def test_a_name_a_metric_reads_is_still_made_by_the_program(recorded, name):
     """A span the traced runs record, a key the Runner logs with a
-    positive value, or a kernel of ``csrc``: where the name is found."""
+    positive value, a kernel of ``csrc`` or a counter the runs count:
+    where the name is found."""
     where = [k for k, names in recorded.items() if name in names]
     assert where, f"{name!r}: read by a metric, made by no part of the port"

@@ -10,6 +10,7 @@ import os
 import time
 from collections import deque
 
+import numpy as np
 import pytest
 import torch
 from torch.autograd import DeviceType
@@ -407,3 +408,74 @@ def test_the_march_kernels_work_count():
     with work.WorkCounter():
         assert work.counting()
     assert not work.counting()
+
+
+# --- the report's accuracy path -------------------------------------------
+
+def _report_env(max_len: int):
+    cfg = pt_config.EnvConfig(
+        num_envs=3, max_episode_length=max_len,
+        camera=pt_config.CameraConfig(height=16, width=16),
+        renderer=pt_config.RendererConfig(resolution=16),
+        scene=pt_config.SceneConfig(num_scenes=3, seed=1))
+    env = ReconEnv(cfg, make_scenes(cfg.scene, 16, "cpu"))
+    torch.manual_seed(0)
+    return env, ActorCriticPolicy(pt_config.ModelConfig(**NARROW), None,
+                                  "cpu")
+
+
+def test_the_report_names_its_scan_dedupe_and_passes(monkeypatch):
+    """A traced ``evaluate(..., compute_accuracy=True)`` records
+    ``eval/scan`` a view (the reset's and each step's), device-timed, and
+    ``eval/accuracy`` inside ``eval/results`` around
+    ``eval/accuracy/dedupe`` and the device-timed ``eval/accuracy/nn``;
+    ``accuracy/scan_points`` counts the deduped points and
+    ``accuracy/nn_pairs`` the pairs whose distances the passes
+    computed."""
+    from gennbv_tpu_torch.ops import chamfer
+    max_len = 3
+    env, policy = _report_env(max_len)
+    scans, pairs = [], []
+    dedupe, sq = evaluation.episode_scans, chamfer._sq_dists
+    monkeypatch.setattr(evaluation, "episode_scans", lambda *a: (
+        scans.append(dedupe(*a)), scans[-1])[1])
+    monkeypatch.setattr(chamfer, "_sq_dists", lambda a, b: (
+        pairs.append(sq(a, b)), pairs[-1])[1])
+    counts = profiling.counters("accuracy/")
+    t0 = time.time_ns()
+    with profiling.tracing():
+        evaluation.evaluate(env, policy, point_stride=2)
+    after = profiling.counters("accuracy/")
+    got = {}
+    for s in _since(t0):
+        got.setdefault(s.name, []).append(s)
+    assert len(got["eval/scan"]) == 1 + max_len
+    assert all(isinstance(s.took, float) for s in got["eval/scan"])
+    (results,) = got["eval/results"]
+    (acc,) = got["eval/accuracy"]
+    (dedupe_span,) = got["eval/accuracy/dedupe"]
+    (nn,) = got["eval/accuracy/nn"]
+    assert acc.parent == results.id
+    assert dedupe_span.parent == nn.parent == acc.id
+    assert isinstance(nn.took, float) and dedupe_span.took is None
+    assert {s.unit for ss in got.values() for s in ss} == {results.unit}
+    (deduped,) = scans
+    assert after["accuracy/scan_points"] - counts.get(
+        "accuracy/scan_points", 0) == sum(map(len, deduped)) > 0
+    assert after["accuracy/nn_pairs"] - counts.get(
+        "accuracy/nn_pairs", 0) == sum(d.numel() for d in pairs) > 0
+
+
+def test_the_report_untraced_records_nothing_and_gives_the_same_result():
+    """Off, the report's spans record nothing; its result is bit for bit
+    the traced one's."""
+    env, policy = _report_env(3)
+    before = profiling.spans()
+    off = evaluation.evaluate(env, policy, point_stride=2)
+    assert profiling.spans() == before
+    with profiling.tracing():
+        on = evaluation.evaluate(env, policy, point_stride=2)
+    for name in off._fields:
+        np.testing.assert_array_equal(getattr(on, name), getattr(off, name),
+                                      err_msg=name)
+    assert np.isfinite(off.mean_accuracy_cm)

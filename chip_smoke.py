@@ -6,7 +6,7 @@
 Phases, in order; any failure raises and the script exits non-zero:
 1. a CUDA card must be present; print its name and power limit, the torch
    version and nvcc's;
-2. build the seven kernels from gennbv_tpu_torch/csrc, one nvcc process per
+2. build the eight kernels from gennbv_tpu_torch/csrc, one nvcc process per
    source, all started together (each timed), and print what ptxas says
    of each kernel (registers, shared memory, spills);
 3. hold each kernel bit-equal to its plain PyTorch version at the shapes of
@@ -45,6 +45,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    - the Bresenham carve at the same two steps (the hits of the march's
      depth in the 20^3 grid, from the camera voxels), a zero fill and one
      launch of its kernel a call, held to the benchmark's closed form too;
+   - the nearest-neighbour kernel at the report's shapes (the 50 eval
+     scenes' GT points, up to 8,192 a scene, and a scan of 3,000-4,500
+     points near each surface, rounded to 1 cm and deduplicated): the
+     three passes of batched_accuracy, one launch each, their bound from
+     the benchmark's frozen count (benchmark/work/chamfer.py);
    and the gather once more on an image with planted values (bf16 ties,
    -0.0, a negative, empty pixels), and, without timing, at its edge
    cases at both image sizes: q of 1, 3 and 4, a ragged q and index
@@ -317,9 +322,9 @@ from gennbv_tpu_torch.models.actor_critic import GaussianActorCritic
 from gennbv_tpu_torch.models.policy import ActorCriticPolicy
 from gennbv_tpu_torch.models import distributions
 from gennbv_tpu_torch.ops import (_cuda, backproject, bresenham, camera,
-                                  carve, conv3d_wgrad, fp32,
-                                  fused_splat, gather, render, scatter, splat,
-                                  voxel, zbuf_scatter)
+                                  carve, chamfer, conv3d_wgrad, fp32,
+                                  fused_splat, gather, nn_min, render,
+                                  scatter, splat, voxel, zbuf_scatter)
 from gennbv_tpu_torch.ops.kernels import WRAPPERS, launches, reset_launches
 from gennbv_tpu_torch.examples import custom_env_families
 from gennbv_tpu_torch.tools import bench_scatter, convert_dataset, post_run
@@ -424,6 +429,8 @@ KERNELS = {
     "raymarch": ("gennbv_tpu_torch/csrc/raymarch.cu", None),
     # no TPU kernel: the JAX package's Bresenham carve is an XLA loop
     "bresenham": ("gennbv_tpu_torch/csrc/bresenham.cu", None),
+    # no TPU kernel: the JAX package's chamfer is plain jnp
+    "nn_min": ("gennbv_tpu_torch/csrc/nn_min.cu", None),
 }
 assert set(KERNELS) == set(WRAPPERS)
 
@@ -438,8 +445,12 @@ PORT_KERNEL_FUNCTIONS = {
     "conv3d_wgrad": "conv3d_wgrad_partial_kernel",
     "raymarch": "raymarch_kernel",
     "bresenham": "bresenham_kernel",
+    "nn_min": "nn_min_kernel",
 }
 WGRAD_REDUCE_FUNCTION = "conv3d_wgrad_reduce_kernel"
+# batched_accuracy's passes (scan to GT, GT to scan, GT to GT), one launch
+# of nn_min_kernel each on the card
+NN_PASSES = 3
 # the conv3d_wgrad wrapper's calls a minibatch step (the encoder's two
 # Conv3d layers), and the eager steps of a Learner on a card before its
 # graph's replays, which launch the kernel without a call
@@ -466,11 +477,11 @@ def splat_expect(k: int) -> dict:
     """Each kernel's launches in a run of k env steps (resets and init-view
     caches counted as steps) on the splat path under zbuf_impl mxu or
     pallas: the fused splat, the hit scatter and the carve gather once a
-    step; the exact scatter-min z-buffer, the ray march and the Bresenham
-    carve never."""
+    step; the exact scatter-min z-buffer, the ray march, the Bresenham
+    carve and the nearest-neighbour passes never."""
     return {"gather_image": k, "scatter_cells_any": k, "zbuf_visible": k,
             "zbuf_scatter_min": 0, "conv3d_wgrad": 0, "raymarch": 0,
-            "bresenham": 0}
+            "bresenham": 0, "nn_min": 0}
 
 
 def exact_zbuf_expect(k: int) -> dict:
@@ -479,7 +490,7 @@ def exact_zbuf_expect(k: int) -> dict:
     and the carve), the hit scatter once, the fused splat never."""
     return {"gather_image": 2 * k, "scatter_cells_any": k, "zbuf_visible": 0,
             "zbuf_scatter_min": k, "conv3d_wgrad": 0, "raymarch": 0,
-            "bresenham": 0}
+            "bresenham": 0, "nn_min": 0}
 
 
 def phase_device() -> str:
@@ -1042,6 +1053,97 @@ def carve_case(label: str, scenes, cam: config.CameraConfig) -> dict:
     return res
 
 
+def nn_scans(scenes, seed: int = 25):
+    """batched_accuracy's inputs at the report's shapes on `scenes`: for
+    each scene a scan of 3,000-4,500 points near its surface (GT points
+    moved by 2 cm of noise), rounded to 1 cm and deduplicated as the eval
+    dedupes its views; the GT points and mask, and each scene's render
+    voxel, on the host."""
+    gt = scenes.gt_points.cpu().numpy()
+    gt_mask = scenes.gt_points_mask.cpu().numpy()
+    rng = np.random.default_rng(seed)
+    scans = []
+    for e in range(gt.shape[0]):
+        pts = gt[e][gt_mask[e]]
+        pick = pts[rng.integers(0, len(pts), rng.integers(3000, 4500))]
+        seen = pick + rng.normal(size=pick.shape).astype(np.float32) * 0.02
+        scans.append(np.unique(np.round(seen, 2), axis=0))
+    vox = ((scenes.box_hi - scenes.box_lo).cpu().numpy().max(axis=1)
+           / scenes.grid_res)
+    return scans, gt, gt_mask, vox
+
+
+def nn_passes(scenes):
+    """The report's three nearest-neighbour passes on nn_scans(scenes),
+    padded as batched_accuracy pads them.  Returns (each pass's arguments
+    of nn_min.nn_min on the card, each env's (scan points, GT points) for
+    the frozen count)."""
+    scans, gt, gt_mask, _ = nn_scans(scenes)
+    pmax = -(-max(map(len, scans)) // 1024) * 1024
+    scan = np.zeros((len(scans), pmax, 3), np.float32)
+    smask = np.zeros((len(scans), pmax), bool)
+    for e, p in enumerate(scans):
+        scan[e, :len(p)], smask[e, :len(p)] = p, True
+    s, sm, g, gm = (torch.as_tensor(x, device="cuda")
+                    for x in (scan, smask, gt, gt_mask))
+    passes = ((s, sm, g, gm, False), (g, gm, s, sm, False),
+              (g, gm, g, gm, True))
+    return passes, [(len(p), int(m)) for p, m in zip(scans, gt_mask.sum(1))]
+
+
+def nn_case(label: str, scenes) -> dict:
+    """The nearest-neighbour kernel on nn_passes(scenes): each pass
+    bit-equal to the plain loop (chamfer._row_mins_ref, 128 query rows a
+    step over every env) on the card; a call of the three passes is three
+    launches of nn_min_kernel and nothing else (torch.profiler); timed as
+    _case times a kernel beside the plain loop, the bound the benchmark's
+    frozen count of the three passes (benchmark/work/chamfer.py)."""
+    from benchmark.work import chamfer as work_chamfer
+    passes, counts = nn_passes(scenes)
+    kernel = lambda: [nn_min.nn_min(*p) for p in passes]
+    plain = lambda: [chamfer._row_mins_ref(a, am, b, bm, 128, ex)
+                     for a, am, b, bm, ex in passes]
+    _equal(label, kernel(), plain())
+    calls = 10
+
+    def run():
+        for _ in range(calls):
+            kernel()
+
+    kernel()
+    _, spans = _profiled(label, run)
+    fn = PORT_KERNEL_FUNCTIONS["nn_min"]
+    if len(spans) != NN_PASSES * calls or not all(fn in e.name for e in spans):
+        raise AssertionError(f"{label}: {len(spans)} device records in "
+                             f"{calls} calls ({sorted({e.name for e in spans})}"
+                             f"), expected {NN_PASSES} launches of {fn} a call")
+    device_ms = sum(e.time_range.end - e.time_range.start
+                    for e in spans) / calls / 1e3
+    bound_ms = work_chamfer.least_seconds(counts, F32_OPS_PER_S,
+                                          HBM_BYTES_PER_S) * 1e3
+    computed = sum(nn_min.pairs(am.cpu().numpy(), bm.cpu().numpy())
+                   for _, am, _, bm, _ in passes)
+    res = {"max_abs_err": 0.0, "ms": _time_ms(kernel),
+           "plain_ms": _time_ms(plain, trials=3, calls=1),
+           "bound_ms": bound_ms, "bound_by": "operations", "library_ms": None,
+           "cold_ms": _time_cold_ms(kernel),
+           "cold_dirty_ms": _time_cold_ms(kernel, flush="zero"),
+           "device_launches_per_call": NN_PASSES,
+           "kernel_device_ms": device_ms,
+           "least_pairs": work_chamfer.pairs(counts),
+           "pairs_computed": computed}
+    print(f"{label}: kernel {res['ms']:.4f} ms (cold {res['cold_ms']:.4f} ms, "
+          f"dirty {res['cold_dirty_ms']:.4f} ms), plain loop "
+          f"{res['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms (operations: "
+          f"the frozen count's {res['least_pairs']:.4g} pairs) (median, CUDA "
+          f"events); {NN_PASSES} launches a call, {device_ms:.4f} ms of "
+          f"device time (profiler), {100 * bound_ms / device_ms:.1f}% of the "
+          f"bound; {computed:.4g} pairs computed "
+          f"({computed / res['least_pairs']:.4f} of the least); bit-equal to "
+          "the plain loop")
+    return res
+
+
 def exact_zbuf_inputs(vic, uic, z, ok, w, depth_max):
     """What zbuf_scatter_vis_px hands the scatter-min: each point's pixel
     in its env's image and its depth, depth_max where it is not valid."""
@@ -1358,6 +1460,11 @@ def phase_kernels(eval_scenes, rollout_scenes,
             f"{path}: bresenham [{scenes.num_scenes}x{G ** 3}] target slots "
             f"of the hits at {hw}x{hw}", scenes,
             config.CameraConfig(height=hw, width=hw))
+    # the report's three nearest-neighbour passes over the eval's scenes
+    out["nn_min"]["eval"] = nn_case(
+        f"eval: nn_min, the report's 3 passes over {eval_scenes.num_scenes} "
+        f"envs of up to {eval_scenes.gt_points.shape[1]} GT points",
+        eval_scenes)
     planted_gather_case(G ** 3)
     paths = [gather_edge_case(*case) for case in GATHER_EDGES]
     print(f"gather_image: bit-equal to the plain version with one device "
@@ -2295,9 +2402,11 @@ def phase_report(card: str, run_dir: str) -> dict:
     # reset and one launch a step
     per_family = (1 + env_cfg.max_episode_length
                   + (env_cfg.renderer.zbuf_impl == "pallas"))
-    # and the accuracy scan's ray march of each view, the init view's too
+    # and the accuracy scan's ray march of each view, the init view's too,
+    # and the accuracy's three nearest-neighbour passes
     expect = {**splat_expect(len(fams) * per_family),
-              "raymarch": len(fams) * (1 + env_cfg.max_episode_length)}
+              "raymarch": len(fams) * (1 + env_cfg.max_episode_length),
+              "nn_min": len(fams) * NN_PASSES}
     if counts != expect:
         raise AssertionError(f"report launched {counts}, expected {expect}")
     with open(REFERENCE_REPORT) as f:
@@ -2399,7 +2508,7 @@ def dda_expect(carve_mode: str, mode: str = "dda") -> dict:
     return {"gather_image": 2 if carve_mode == "ztest" else 0,
             "scatter_cells_any": 1, "zbuf_visible": 0, "zbuf_scatter_min": 0,
             "conv3d_wgrad": 0, "raymarch": int(mode == "dda"),
-            "bresenham": int(carve_mode == "bresenham")}
+            "bresenham": int(carve_mode == "bresenham"), "nn_min": 0}
 
 
 def _step_counted(env, state, actions, expect: dict, label: str):
@@ -2731,10 +2840,11 @@ def phase_dataset(card: str, dirs: dict, root: str) -> dict:
                             "held_out_houses", "--no-artifacts"])
     t_report = time.perf_counter() - t0
     report_counts = launches()
-    # the family's steps and its reset, and the accuracy scan's ray march of
-    # each view
+    # the family's steps and its reset, the accuracy scan's ray march of
+    # each view and the accuracy's three nearest-neighbour passes
     expect = {**splat_expect(1 + spec.MAX_EPISODE_LENGTH_EVAL),
-              "raymarch": 1 + spec.MAX_EPISODE_LENGTH_EVAL}
+              "raymarch": 1 + spec.MAX_EPISODE_LENGTH_EVAL,
+              "nn_min": NN_PASSES}
     if report_counts != expect:
         raise AssertionError(f"dataset post_run launched {report_counts}, "
                              f"expected {expect}")

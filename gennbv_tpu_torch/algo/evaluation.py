@@ -26,11 +26,14 @@ import numpy as np
 import torch
 
 from gennbv_tpu_torch.models import distributions
-from gennbv_tpu_torch.ops import backproject, camera, chamfer, fp32, render
+from gennbv_tpu_torch.ops import (backproject, camera, chamfer, fp32, nn_min,
+                                  render)
 from gennbv_tpu_torch.utils import profiling
 
-# point pairs of one NN pass: ~1 GB of squared-distance temporaries at
-# ~40 bytes a pair (the rounding's float64 intermediates)
+# point pairs of one NN pass on the CPU, where the plain loop builds its
+# squared-distance tiles: ~1 GB of temporaries at ~40 bytes a pair (the
+# rounding's float64 intermediates); the card's kernel keeps its pairs in
+# registers and takes every env in one pass
 _NN_PAIRS_PER_PASS = 25_000_000
 # the unit of each evaluate call's spans: its number in the process
 _calls = itertools.count(1)
@@ -110,14 +113,18 @@ def batched_accuracy(deduped, gt_pts, gt_mask, vox, group: int | None = None,
     """Reconstruction-accuracy metrics over all envs' episode scans, on
     `device` (the card unless the caller asks for the CPU).
 
-    Scan points are padded to a common count and masked; the NN pass
-    chunks over query rows only, so each point's min over the whole target
-    set, and every derived metric, equals the per-env form's.  Envs go in
-    groups of `group` (None: the JAX package's choice from the padded
-    point count); the query rows of a pass are sized so that its
-    squared-distance transient stays near 1 GB.  The three passes, their
-    copies to the host included, lie in the device-timed span
-    ``eval/accuracy/nn``.
+    Scan points are padded to a common count and masked; each point's min
+    runs over the whole target set, so every derived metric equals the
+    per-env form's.  On the card each pass is one launch of the kernel
+    over every env (``ops/nn_min.py``), each env's pairs to its own
+    extents, its pairs are counted from the host's masks before the
+    passes, and the three passes' minima are copied to pinned host memory
+    with one wait after them.  On the CPU the plain loop chunks over
+    query rows only, envs in groups of `group` (None: the JAX package's
+    choice from the padded point count), the query rows of a pass sized so
+    that its squared-distance transient stays near 1 GB.  The three
+    passes, each one copy of its minima to the host included, lie in the
+    device-timed span ``eval/accuracy/nn``.
 
     Args: deduped - list of N [Pi, 3] arrays (rounded and deduped scan
     points, possibly empty); gt_pts/gt_mask - [N, Pg, 3]/[N, Pg]
@@ -134,9 +141,6 @@ def batched_accuracy(deduped, gt_pts, gt_mask, vox, group: int | None = None,
         return nan, nan, nan, nan, nan, nan
 
     pmax = -(-max(len(p) for p in deduped) // 1024) * 1024
-    if group is None:
-        biggest = max(pmax, gt_pts.shape[1])
-        group = max(1, min(8, int(2.5e8 // (128 * biggest * 4))))
     scan = np.zeros((n, pmax, 3), np.float32)
     smask = np.zeros((n, pmax), bool)
     for e, p in enumerate(deduped):
@@ -149,24 +153,42 @@ def batched_accuracy(deduped, gt_pts, gt_mask, vox, group: int | None = None,
     scan_t, smask_t = dev(scan), dev(smask)
     gt_t, gm_t = dev(gt_pts, np.float32), dev(gt_mask)
 
-    def grouped(fn, a, am, b, bm):
-        chunk = max(128, _NN_PAIRS_PER_PASS // (group * b.shape[1]) // 128 * 128)
-        outs = [fn(a[s:s + group], am[s:s + group], b[s:s + group],
-                   bm[s:s + group], chunk).cpu().numpy()
-                for s in range(0, n, group)]
-        return np.concatenate(outs)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        for am, bm in ((smask, gt_mask), (gt_mask, smask), (gt_mask, gt_mask)):
+            profiling.count("accuracy/nn_pairs", nn_min.pairs(am, bm))
+
+        def nn_pass(fn, a, am, b, bm):
+            # to pinned host memory, waited for once after the three passes
+            return fn(a, am, b, bm, nn_min.ROWS).to("cpu", non_blocking=True)
+    else:
+        if group is None:
+            biggest = max(pmax, gt_pts.shape[1])
+            group = max(1, min(8, int(2.5e8 // (128 * biggest * 4))))
+
+        def nn_pass(fn, a, am, b, bm):
+            chunk = max(128, _NN_PAIRS_PER_PASS // (group * b.shape[1])
+                        // 128 * 128)
+            outs = [fn(a[s:s + group], am[s:s + group], b[s:s + group],
+                       bm[s:s + group], chunk).cpu().numpy()
+                    for s in range(0, n, group)]
+            return np.concatenate(outs)
 
     with profiling.device_span("eval/accuracy/nn", device):
-        scan_nn = grouped(chamfer.nn_sq_dists, scan_t, smask_t, gt_t, gm_t)
-        gt_nn = grouped(chamfer.nn_sq_dists, gt_t, gm_t, scan_t, smask_t)
+        scan_nn = nn_pass(chamfer.nn_sq_dists, scan_t, smask_t, gt_t, gm_t)
+        gt_nn = nn_pass(chamfer.nn_sq_dists, gt_t, gm_t, scan_t, smask_t)
         # floor of the scan->gt direction: the GT sampling's own NN^2.  A
         # surface-exact scan point still measures ~floor/4 to the nearest
         # GT sample.  Its mean is taken here on the host, as the others
         # are, so the card's result equals the CPU's (the JAX package sums
         # it on the device, in XLA's order).
-        gt_self_nn = grouped(lambda a, am, b, bm, chunk:
+        gt_self_nn = nn_pass(lambda a, am, b, bm, chunk:
                              chamfer.self_nn_sq_dists(a, am, chunk),
                              gt_t, gm_t, gt_t, gm_t)
+        if on_card:
+            torch.cuda.current_stream(device).synchronize()
+    scan_nn, gt_nn, gt_self_nn = (np.asarray(x)
+                                  for x in (scan_nn, gt_nn, gt_self_nn))
 
     def mmean(d, m):
         return np.where(m.any(axis=1),

@@ -6,24 +6,29 @@ The reference computes reconstruction accuracy as
 (env_eval_gennbv.py:252-264); PyTorch3D's chamfer_distance returns the
 *sum* of the two mean squared nearest-neighbour distances.
 
-Brute force, chunked over the query rows only, so each query's min runs
-over the whole target set and is exact whatever the chunk.  The squared
-distance is written out term by term and rounded as XLA's CPU compiler
-rounds ``sum((a - b) ** 2)`` in the jitted JAX function (a chain of fused
-multiply-adds, ``ops/fp32.py``), so the per-point minima equal the
-reference's on the CPU and are the same on the card.  Every function
-takes optional leading batch axes (envs).
+Brute force.  The squared distance is written out term by term and
+rounded as XLA's CPU compiler rounds ``sum((a - b) ** 2)`` in the jitted
+JAX function (a chain of fused multiply-adds, ``ops/fp32.py``), so the
+per-point minima equal the reference's on the CPU and are the same on the
+card.  Every function takes optional leading batch axes (envs).  On CUDA
+tensors ``_row_mins`` launches the hand-written kernel of
+``ops/nn_min.py`` (one launch a call, bit-equal to the loop; it raises on
+what the kernel does not take, with no fallback); on the CPU it runs the
+plain loop, chunked over the query rows only, so each query's min runs
+over the whole target set and is exact whatever the chunk.
 
 The counter ``accuracy/nn_pairs`` (``utils/profiling.py``, a host
-integer) sums the point pairs whose squared distance is computed: query
-rows times target columns of every chunk, batch and padding included.
+integer) sums the point pairs whose squared distance is computed: on the
+CPU, query rows times target columns of every chunk, batch and padding
+included; on the card ``algo/evaluation.py``'s ``batched_accuracy``
+counts the kernel's from its host masks (``nn_min.pairs``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from gennbv_tpu_torch.ops import fp32
+from gennbv_tpu_torch.ops import fp32, nn_min
 from gennbv_tpu_torch.utils import profiling
 
 _BIG = 1e10
@@ -50,7 +55,20 @@ def _row_mins(a, a_mask, b, b_mask, chunk: int, exclude_self: bool = False):
     """[..., P]: min over the valid b of each valid a row's squared
     distance (1e10 where a is masked out or no b is valid); with
     exclude_self, row i skips b's row i.  Rows and targets past the last
-    valid point are never computed."""
+    valid point are never computed.  CUDA tensors go to the kernel
+    (``nn_min.nn_min``, which takes one leading shape for a and b and no
+    chunk); others to the plain loop ``_row_mins_ref``."""
+    if a.is_cuda:
+        return nn_min.nn_min(a, a_mask, b, b_mask, exclude_self)
+    return _row_mins_ref(a, a_mask, b, b_mask, chunk, exclude_self)
+
+
+def _row_mins_ref(a, a_mask, b, b_mask, chunk: int,
+                  exclude_self: bool = False):
+    """``_row_mins`` as the plain loop, on any device: `chunk` query rows a
+    step, each a [..., chunk, Q] tile of ``_sq_dists``, masked and reduced
+    by PyTorch's elementwise ops (the CPU's path, and the card tests'
+    yardstick for the kernel)."""
     out = torch.full(a.shape[:-1], _BIG, dtype=a.dtype, device=a.device)
     kb = _extent(b_mask)
     if kb == 0:

@@ -5,7 +5,8 @@ else."""
 from __future__ import annotations
 
 from gennbv_tpu_torch.ops import (bresenham, conv3d_wgrad, fused_splat,
-                                  gather, raymarch, scatter, zbuf_scatter)
+                                  gather, nn_min, raymarch, scatter,
+                                  zbuf_scatter)
 from gennbv_tpu_torch.utils import profiling
 
 WRAPPERS = {
@@ -16,6 +17,7 @@ WRAPPERS = {
     "conv3d_wgrad": conv3d_wgrad.conv3d_wgrad,
     "raymarch": raymarch.raymarch,
     "bresenham": bresenham.bresenham,
+    "nn_min": nn_min.nn_min,
 }
 
 

@@ -296,8 +296,10 @@ class ReconEnv:
         """actions: [N, 6] discrete pose indices.  The span ``env/step``
         (``env/render``, ``env/map``, ``env/reward``), counted in
         ``env/steps`` and, by its envs, ``env/env_steps``.  Inside them
-        the device-timed spans ``env/render/raymarch`` (the "dda" march)
-        and ``env/map/carve`` (every path's carve)."""
+        the device-timed spans ``env/render/raymarch`` (the "dda" march),
+        ``env/render/zbuf`` (the splat's exact z-buffer under
+        ``zbuf_impl="scatter"``) and ``env/map/carve`` (every path's
+        carve)."""
         n = state.episode_len.shape[0]
         profiling.count("env/steps")
         profiling.count("env/env_steps", n)

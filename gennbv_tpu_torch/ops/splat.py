@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from gennbv_tpu_torch.ops import fp32, gather, zbuf_scatter
 from gennbv_tpu_torch.ops.camera import pixel_index
+from gennbv_tpu_torch.utils import profiling
 
 LEVELS = 10                      # levels per depth digit (mxu.scatter_min_image)
 EMPTY_KEY = LEVELS * LEVELS      # key of a pixel that no valid point reaches
@@ -142,14 +143,17 @@ def zbuf_scatter_vis_px(vic, uic, z, ok, height: int, width: int,
     and visibility [N, Q] with slack voxel_eps [N], the pooled depth read
     rounded to bf16 by ``gather.gather_image``.  The unpooled z-buffer is
     ``zbuf_scatter.zbuf_scatter_min`` of each point's pixel in its own
-    env's image and its depth, depth_max where it is not valid."""
+    env's image and its depth, depth_max where it is not valid.  The
+    z-buffer, pool and visibility lie in the device-timed span
+    ``env/render/zbuf`` (recorded only while spans record)."""
     n = z.shape[0]
-    zbuf0 = zbuf_scatter.zbuf_scatter_min(vic * width + uic,
-                                          torch.where(ok, z, depth_max),
-                                          height, width, depth_max)
-    zbuf2d = min_pool(zbuf0, footprint, depth_max)
-    z_at_px = gather.gather_image(zbuf2d, vic, uic)
-    visible = ok & (z <= z_at_px + voxel_eps[:, None])
+    with profiling.device_span("env/render/zbuf", z.device):
+        zbuf0 = zbuf_scatter.zbuf_scatter_min(vic * width + uic,
+                                              torch.where(ok, z, depth_max),
+                                              height, width, depth_max)
+        zbuf2d = min_pool(zbuf0, footprint, depth_max)
+        z_at_px = gather.gather_image(zbuf2d, vic, uic)
+        visible = ok & (z <= z_at_px + voxel_eps[:, None])
     return zbuf2d.reshape(n, height * width), visible
 
 

@@ -63,9 +63,10 @@ def _tiny_env(**kw) -> pt_config.EnvConfig:
 def recorded(tmp_path_factory):
     """The span names of a traced one-iteration ``Runner.train``, a
     traced ``evaluate`` episode with the accuracy scan (the report's
-    path) and a traced env step on the DDA march with the Bresenham
-    carve; the keys the Runner wrote to ``metrics.jsonl`` with a positive
-    value; the kernels of ``csrc``; the counters the three counted."""
+    path), a traced env step on the DDA march with the Bresenham carve
+    and one on the splat's exact z-buffer; the keys the Runner wrote to
+    ``metrics.jsonl`` with a positive value; the kernels of ``csrc``; the
+    counters the runs counted."""
     log_dir = tmp_path_factory.mktemp("contract") / "run"
     cfg = pt_config.Config(
         env=pt_config.EnvConfig(
@@ -80,6 +81,8 @@ def recorded(tmp_path_factory):
     eval_env = _tiny_env(renderer=pt_config.RendererConfig(resolution=16))
     dda_env = _tiny_env(carve_mode="bresenham", renderer=pt_config.
                         RendererConfig(mode="dda", resolution=16))
+    exact_env = _tiny_env(renderer=pt_config.RendererConfig(
+        resolution=16, zbuf_impl="scatter"))
     t0, counted = time.time_ns(), profiling.counters()
     with profiling.tracing():
         r = runner.Runner(cfg, log_dir=str(log_dir), device="cpu")
@@ -89,8 +92,9 @@ def recorded(tmp_path_factory):
         policy = ActorCriticPolicy(pt_config.ModelConfig(**NARROW), None,
                                    "cpu")
         evaluation.evaluate(env, policy, point_stride=2)
-        env = ReconEnv(dda_env, make_scenes(dda_env.scene, 16, "cpu"))
-        env.step(env.init_state(3), env.init_action.expand(3, 6))
+        for cfg_env in (dda_env, exact_env):
+            env = ReconEnv(cfg_env, make_scenes(cfg_env.scene, 16, "cpu"))
+            env.step(env.init_state(3), env.init_action.expand(3, 6))
     spans = {s.name for s in profiling.spans() if s.start_ns >= t0}
     with open(log_dir / "metrics.jsonl") as f:
         (logged,) = [json.loads(line) for line in f]
@@ -111,3 +115,21 @@ def test_a_name_a_metric_reads_is_still_made_by_the_program(recorded, name):
     where the name is found."""
     where = [k for k, names in recorded.items() if name in names]
     assert where, f"{name!r}: read by a metric, made by no part of the port"
+
+
+def test_the_exact_zbuffer_cell_reports_its_metrics():
+    """``exact400.eval`` is found with its configuration's exact z-buffer
+    and its traffic's loop, and reports the eval's end-to-end metrics, the
+    eval's per-layer metrics of the layers it runs (not the fused splat's
+    roofline) and its own two."""
+    cell = harness.find_cell(harness.load_spec(), "exact400.eval")
+    assert cell.workload["chips"] == 1
+    assert cell.config["config"]["env"]["renderer"]["zbuf_impl"] == "scatter"
+    assert cell.traffic["loop"] == "eval_zscatter"
+    assert {m["name"] for m in cell.end_to_end} == {
+        "eval_env_steps_per_s", "eval_episode_p90_s", "setup_s"}
+    assert {m["name"] for m in cell.per_layer} == {
+        "idle_share.eval", "env_step_launches.eval", "eval_mfu",
+        "env_step_host_ms.eval", "policy_host_ms.eval",
+        "env_step_idle_share.eval", "zscatter_ms.eval",
+        "zscatter_roofline.eval"}

@@ -328,6 +328,89 @@ def test_an_env_step_names_its_march_and_its_carve(mode, carve_mode):
     assert profiling.device_span("off/a", "cpu") is profiling.span("off/b")
 
 
+def _splat_env(zbuf_impl: str, max_episode_length: int = 4) -> ReconEnv:
+    cfg = pt_config.EnvConfig(
+        num_envs=3, max_episode_length=max_episode_length,
+        camera=pt_config.CameraConfig(height=16, width=16),
+        renderer=pt_config.RendererConfig(resolution=16, zbuf_impl=zbuf_impl),
+        scene=pt_config.SceneConfig(num_scenes=3, seed=1))
+    return ReconEnv(cfg, make_scenes(cfg.scene, 16, "cpu"))
+
+
+@pytest.mark.parametrize("zbuf_impl", ["mxu", "pallas", "scatter"])
+def test_the_exact_zbuffer_names_its_span(zbuf_impl):
+    """A traced splat step records ``env/render/zbuf`` inside
+    ``env/render`` under ``zbuf_impl="scatter"`` alone, with its seconds
+    on the device (the host's on the CPU); the two-digit z-buffer never
+    records it; untraced, no step records it."""
+    env = _splat_env(zbuf_impl)
+    state = env.init_state(3)
+    actions = env.init_action.expand(3, 6)
+    t0 = time.time_ns()
+    with profiling.tracing():
+        env.step(state, actions)
+    spans = _since(t0)
+    mine = [s for s in spans if s.name == "env/render/zbuf"]
+    if zbuf_impl != "scatter":
+        assert mine == []
+    else:
+        (s,) = mine
+        assert {p.name for p in spans if p.id == s.parent} == {"env/render"}
+        took = profiling.device_seconds(s)
+        assert isinstance(took, float) and 0 < took <= \
+            (s.end_ns - s.start_ns) / 1e9 + 1e-3
+    t1 = time.time_ns()
+    env.step(state, actions)
+    assert _since(t1) == []
+
+
+def _emulated_scatter_min(monkeypatch):
+    """Sends the CPU's scatter-min calls through the card's wrapper
+    (``zbuf_scatter.launch``: its counter and work count), with the
+    kernel's launch emulated on the host: the minimum of the fill and the
+    depths written through the output's pointer."""
+    import ctypes
+    from gennbv_tpu_torch.ops import _cuda, zbuf_scatter
+
+    def launch(index, fn, flat_p, zz_p, out_p, n, q, hw, band_pixels, bands,
+               ctas, fill):
+        def at(p, ctype, count):
+            return np.ctypeslib.as_array((ctype * count).from_address(p))
+        img = np.full((n, hw), fill, np.float32)
+        np.minimum.at(img, (np.repeat(np.arange(n), q),
+                            at(flat_p, ctypes.c_int32, n * q)),
+                      at(zz_p, ctypes.c_float, n * q))
+        at(out_p, ctypes.c_float, n * hw)[:] = img.reshape(-1)
+        return 0
+
+    monkeypatch.setattr(_cuda, "launch", launch)
+    monkeypatch.setattr(zbuf_scatter, "_launcher", lambda: None)
+    monkeypatch.setattr(
+        zbuf_scatter, "zbuf_scatter_min_ref",
+        lambda flat, zz, h, w, fill: zbuf_scatter.launch(
+            flat, zz, h, w, fill, zbuf_scatter.Geometry(h, 1, flat.shape[0])))
+
+
+@pytest.mark.parametrize("zbuf_impl,want", [("mxu", 0), ("scatter", 31)])
+def test_the_scatter_min_counts_a_launch_an_env_step(monkeypatch, zbuf_impl,
+                                                     want):
+    """``kernel/zbuf_scatter_min/launches`` counts one launch a batched env
+    step under ``zbuf_impl="scatter"``, 31 an ``evaluate`` call at the
+    eval's 30 steps (the reset's step included), and none on the
+    two-digit path; the emulated launches give the plain version's
+    episode."""
+    env = _splat_env(zbuf_impl, max_episode_length=30)
+    policy = ActorCriticPolicy(pt_config.ModelConfig(**NARROW), None, "cpu")
+    plain = evaluation.evaluate(env, policy, compute_accuracy=False)
+    _emulated_scatter_min(monkeypatch)
+    kernels.reset_launches()
+    got = evaluation.evaluate(env, policy, compute_accuracy=False)
+    assert kernels.launches()["zbuf_scatter_min"] == want
+    np.testing.assert_array_equal(got.per_env_coverage,
+                                  plain.per_env_coverage)
+    np.testing.assert_array_equal(got.per_env_auc, plain.per_env_auc)
+
+
 def test_the_march_and_carve_counters_count_what_the_call_did():
     """``raymarch/voxel_reads``: the voxels the rays read, the
     benchmark's own march's count itself, kept on the device (the case's

@@ -124,8 +124,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    march on 2 envs bit-equal to the same functions on the CPU, and the
    card's accuracy to float64 scipy cKDTree nearest neighbours (1e-3
    relative); prints each family's evaluate seconds with and without the
-   scan, the ray march's device time per view, the seconds of the dedupe
-   and of batched_accuracy, and peak memory.  Then train/play.py's main
+   scan, the ray march's device time per view, the seconds of the host's
+   dedupe and of batched_accuracy, and peak memory; holds the card's dedupe
+   (dedupe_cm, one launch of each of its two kernels a call) bit-equal to
+   its plain version on the card and to the host's np.unique on the
+   held-out family's episode, and times the three.  Then train/play.py's main
    with --ply, --obj and --export on the card: the files are non-empty and
    the loaded torch.export program's actions equal the eager policy's.
 9. the DDA, replay and callback env paths at full width: phase 5's 256
@@ -322,7 +325,7 @@ from gennbv_tpu_torch.models.actor_critic import GaussianActorCritic
 from gennbv_tpu_torch.models.policy import ActorCriticPolicy
 from gennbv_tpu_torch.models import distributions
 from gennbv_tpu_torch.ops import (_cuda, backproject, bresenham, camera,
-                                  carve, chamfer, conv3d_wgrad, fp32,
+                                  carve, chamfer, conv3d_wgrad, dedupe, fp32,
                                   fused_splat, gather, nn_min, render,
                                   scatter, splat, voxel, zbuf_scatter)
 from gennbv_tpu_torch.ops.kernels import WRAPPERS, launches, reset_launches
@@ -431,12 +434,15 @@ KERNELS = {
     "bresenham": ("gennbv_tpu_torch/csrc/bresenham.cu", None),
     # no TPU kernel: the JAX package's chamfer is plain jnp
     "nn_min": ("gennbv_tpu_torch/csrc/nn_min.cu", None),
+    # no TPU kernel: the JAX package's 1 cm dedupe is np.unique on the host
+    "dedupe_cm": ("gennbv_tpu_torch/csrc/dedupe_cm.cu", None),
 }
 assert set(KERNELS) == set(WRAPPERS)
 
 
 # the __global__ function each wrapper launches, once a call (csrc/*.cu;
-# conv3d_wgrad's second launch, its reduction, is WGRAD_REDUCE_FUNCTION)
+# conv3d_wgrad's second launch, its reduction, is WGRAD_REDUCE_FUNCTION;
+# dedupe_cm's, after PyTorch's sort, DEDUPE_EMIT_FUNCTION)
 PORT_KERNEL_FUNCTIONS = {
     "gather_image": "gather_image_kernel",
     "scatter_cells_any": "scatter_cells_any_kernel",
@@ -446,8 +452,10 @@ PORT_KERNEL_FUNCTIONS = {
     "raymarch": "raymarch_kernel",
     "bresenham": "bresenham_kernel",
     "nn_min": "nn_min_kernel",
+    "dedupe_cm": "dedupe_key_kernel",
 }
 WGRAD_REDUCE_FUNCTION = "conv3d_wgrad_reduce_kernel"
+DEDUPE_EMIT_FUNCTION = "dedupe_emit_kernel"
 # batched_accuracy's passes (scan to GT, GT to scan, GT to GT), one launch
 # of nn_min_kernel each on the card
 NN_PASSES = 3
@@ -478,10 +486,10 @@ def splat_expect(k: int) -> dict:
     caches counted as steps) on the splat path under zbuf_impl mxu or
     pallas: the fused splat, the hit scatter and the carve gather once a
     step; the exact scatter-min z-buffer, the ray march, the Bresenham
-    carve and the nearest-neighbour passes never."""
+    carve, the nearest-neighbour passes and the dedupe never."""
     return {"gather_image": k, "scatter_cells_any": k, "zbuf_visible": k,
             "zbuf_scatter_min": 0, "conv3d_wgrad": 0, "raymarch": 0,
-            "bresenham": 0, "nn_min": 0}
+            "bresenham": 0, "nn_min": 0, "dedupe_cm": 0}
 
 
 def exact_zbuf_expect(k: int) -> dict:
@@ -490,7 +498,7 @@ def exact_zbuf_expect(k: int) -> dict:
     and the carve), the hit scatter once, the fused splat never."""
     return {"gather_image": 2 * k, "scatter_cells_any": k, "zbuf_visible": 0,
             "zbuf_scatter_min": k, "conv3d_wgrad": 0, "raymarch": 0,
-            "bresenham": 0, "nn_min": 0}
+            "bresenham": 0, "nn_min": 0, "dedupe_cm": 0}
 
 
 def phase_device() -> str:
@@ -1556,9 +1564,9 @@ def profile(label: str, fn, unprofiled_s: float | None = None) -> dict:
 
 def _device_ms_per_call(device_us: dict, calls: int) -> dict:
     """The profiled device time of each wrapper over `calls` calls, per
-    call."""
-    return {name: device_us.get(fn, 0.0) / calls / 1e3
-            for name, fn in PORT_KERNEL_FUNCTIONS.items()}
+    call; a wrapper whose kernel left no record is left out."""
+    return {name: device_us[fn] / calls / 1e3
+            for name, fn in PORT_KERNEL_FUNCTIONS.items() if fn in device_us}
 
 
 def flagship_config() -> config.EnvConfig:
@@ -2272,12 +2280,95 @@ def _kdtree_accuracy(deduped, gt_pts, gt_mask) -> dict:
             "floor": float(floor.mean())}
 
 
+def dedupe_case(card: str, ep, host: list) -> dict:
+    """The card's 1 cm dedupe at the report's shape, on an episode's
+    device scans ``ep.device_scans``: the kernels (``dedupe.dedupe_cm``,
+    padded as the report pads) and the plain version on the card
+    (``dedupe_cm_ref``) bit-equal, and each env's rows equal to the host's
+    np.unique lists `host` (``evaluation.episode_scans``); a call's device
+    records under the profiler (one launch of each of its two kernels,
+    PyTorch's sort, the counts' copy); timed beside the plain version, the
+    host's np.unique and the bound of ``dedupe.work``'s bytes."""
+    pts, valid = ep.device_scans
+    before_done = evaluation.before_done_mask(ep.dones)
+    first_done = torch.as_tensor(before_done.sum(axis=0).astype(np.int64) - 1,
+                                 device=pts.device)
+    kernel = lambda: dedupe.dedupe_cm(pts, valid, first_done,
+                                      evaluation.SCAN_PAD)
+    plain = lambda: dedupe.dedupe_cm_ref(pts, valid, first_done,
+                                         evaluation.SCAN_PAD)
+    got, ref = kernel(), plain()
+    if not (torch.equal(got.rows, ref.rows)
+            and (got.counts == ref.counts).all()
+            and (got.points_in == ref.points_in).all()):
+        raise AssertionError("dedupe_cm: the kernels differ from the plain "
+                             "version on the card")
+    rows = got.rows.cpu().numpy()
+    for e, want in enumerate(host):
+        if got.counts[e] != len(want) or not np.array_equal(
+                rows[e, :len(want)], want):
+            raise AssertionError(f"dedupe_cm: env {e}'s rows differ from "
+                                 "np.unique's")
+    calls = 5
+
+    def run():
+        for _ in range(calls):
+            kernel()
+
+    kernel()
+    _, spans = _profiled("dedupe_cm", run)
+    names = [e.name for e in spans]
+    ours = (PORT_KERNEL_FUNCTIONS["dedupe_cm"], DEDUPE_EMIT_FUNCTION)
+    for fn in ours:
+        if sum(fn in name for name in names) != calls:
+            raise AssertionError(f"dedupe_cm: {calls} calls launched "
+                                 f"{sorted(set(names))}, expected one {fn} "
+                                 "a call")
+
+    def device_ms(keep):
+        return sum(e.time_range.end - e.time_range.start for e in spans
+                   if keep(e.name)) / calls / 1e3
+
+    kernels_ms = device_ms(lambda name: any(fn in name for fn in ours))
+    copy_ms = device_ms(lambda name: "Memcpy" in name or "Memset" in name)
+    all_ms = device_ms(lambda name: True)
+    t_host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        evaluation.episode_scans(ep.scan_pts, ep.scan_valid, before_done)
+        t_host.append(time.perf_counter() - t0)
+    nbytes, ops = dedupe.work(valid.numel(), int(got.points_in.sum()),
+                              int(got.counts.sum()))
+    bound_ms, bound_by = _bound(nbytes, ops)
+    res = {"ms": _time_ms(kernel, trials=11, calls=3),
+           "plain_ms": _time_ms(plain, trials=3, calls=1),
+           "np_unique_ms": statistics.median(t_host) * 1e3,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "device_ms": all_ms, "kernels_device_ms": kernels_ms,
+           "sort_device_ms": all_ms - kernels_ms - copy_ms,
+           "copies_device_ms": copy_ms,
+           "device_activities_per_call": len(spans) / calls,
+           "points_in": int(got.points_in.sum()),
+           "rows": int(got.counts.sum())}
+    print(f"dedupe_cm: {res['points_in']} points in, {res['rows']} rows out "
+          f"({list(pts.shape)}); bit-equal to the plain version on the card "
+          f"and to the host's np.unique; a call {res['ms']:.4f} ms (CUDA "
+          f"events, with its wait for the counts), {all_ms:.4f} ms of device "
+          f"time in {res['device_activities_per_call']:g} activities "
+          f"(profiler: the two kernels {kernels_ms:.4f}, the sort "
+          f"{res['sort_device_ms']:.4f}, copies {copy_ms:.4f}); plain version "
+          f"{res['plain_ms']:.4f} ms, host np.unique {res['np_unique_ms']:.1f}"
+          f" ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+    return res
+
+
 def _report_pieces(card: str, env, policy, report: dict) -> dict:
     """The held-out family's accuracy scan piece by piece on the card:
     the episodes with their scan, the host dedupe and batched_accuracy,
-    each timed; batched_accuracy and the ray march on 2 envs held equal to
-    the same functions on the CPU; the card's accuracy held to float64 KD
-    trees; the ray march's device time per view."""
+    each timed; the card's dedupe beside them (``dedupe_case``);
+    batched_accuracy and the ray march on 2 envs held equal to the same
+    functions on the CPU; the card's accuracy held to float64 KD trees;
+    the ray march's device time per view."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ep = evaluation.run_episodes(env, policy, POINT_STRIDE)
@@ -2286,6 +2377,7 @@ def _report_pieces(card: str, env, policy, report: dict) -> dict:
     deduped = evaluation.episode_scans(ep.scan_pts, ep.scan_valid,
                                        evaluation.before_done_mask(ep.dones))
     t_dedupe = time.perf_counter() - t0
+    dedupe_timing = dedupe_case(card, ep, deduped)
     sc = env.scenes
     sids = ep.scene_id
     gt = sc.gt_points[sids].cpu().numpy()
@@ -2374,8 +2466,9 @@ def _report_pieces(card: str, env, policy, report: dict) -> dict:
           f"activities (profiler), {wall_ms:.3f} ms a call (CUDA events) "
           f"[{card}]")
     return {"episodes_s": t_episodes, "dedupe_s": t_dedupe,
-            "batched_accuracy_s": t_accuracy, "raymarch_view_device_ms": device_ms,
-            "raymarch_view_ms": wall_ms, "raymarch_view_activities": per_call}
+            "dedupe_cm": dedupe_timing, "batched_accuracy_s": t_accuracy,
+            "raymarch_view_device_ms": device_ms, "raymarch_view_ms": wall_ms,
+            "raymarch_view_activities": per_call}
 
 
 def phase_report(card: str, run_dir: str) -> dict:
@@ -2403,10 +2496,10 @@ def phase_report(card: str, run_dir: str) -> dict:
     per_family = (1 + env_cfg.max_episode_length
                   + (env_cfg.renderer.zbuf_impl == "pallas"))
     # and the accuracy scan's ray march of each view, the init view's too,
-    # and the accuracy's three nearest-neighbour passes
+    # the accuracy's dedupe and its three nearest-neighbour passes
     expect = {**splat_expect(len(fams) * per_family),
               "raymarch": len(fams) * (1 + env_cfg.max_episode_length),
-              "nn_min": len(fams) * NN_PASSES}
+              "nn_min": len(fams) * NN_PASSES, "dedupe_cm": len(fams)}
     if counts != expect:
         raise AssertionError(f"report launched {counts}, expected {expect}")
     with open(REFERENCE_REPORT) as f:
@@ -2508,7 +2601,8 @@ def dda_expect(carve_mode: str, mode: str = "dda") -> dict:
     return {"gather_image": 2 if carve_mode == "ztest" else 0,
             "scatter_cells_any": 1, "zbuf_visible": 0, "zbuf_scatter_min": 0,
             "conv3d_wgrad": 0, "raymarch": int(mode == "dda"),
-            "bresenham": int(carve_mode == "bresenham"), "nn_min": 0}
+            "bresenham": int(carve_mode == "bresenham"), "nn_min": 0,
+            "dedupe_cm": 0}
 
 
 def _step_counted(env, state, actions, expect: dict, label: str):
@@ -2841,10 +2935,10 @@ def phase_dataset(card: str, dirs: dict, root: str) -> dict:
     t_report = time.perf_counter() - t0
     report_counts = launches()
     # the family's steps and its reset, the accuracy scan's ray march of
-    # each view and the accuracy's three nearest-neighbour passes
+    # each view, the accuracy's dedupe and its three nearest-neighbour passes
     expect = {**splat_expect(1 + spec.MAX_EPISODE_LENGTH_EVAL),
               "raymarch": 1 + spec.MAX_EPISODE_LENGTH_EVAL,
-              "nn_min": NN_PASSES}
+              "nn_min": NN_PASSES, "dedupe_cm": 1}
     if report_counts != expect:
         raise AssertionError(f"dataset post_run launched {report_counts}, "
                              f"expected {expect}")
@@ -4315,7 +4409,7 @@ def main() -> None:
         train_counts = phase_train(card, rollout_scenes, eval_scenes, run_dir)
         train400_counts = train400(card, rollout_scenes,
                                    os.path.join(run_dir, "train400"))
-        report_counts, _ = phase_report(card, run_dir)
+        report_counts, report_pieces = phase_report(card, run_dir)
         dda_counts = phase_dda(card, rollout_scenes)
         dataset_counts = phase_dataset(card, dirs, data_root)
         rsl_counts = phase_rsl(card)
@@ -4334,11 +4428,18 @@ def main() -> None:
                "report": report_counts, **dda_counts,
                **dataset_counts, "rsl": rsl_counts, **p12_counts,
                **p13_counts, "mesh": mesh_counts, **exact_counts}
-    # each kernel's device time a call, profiled on the path that runs it
+    # each kernel's device time a call, profiled on the path that runs it;
+    # none where neither path does
     for name in KERNELS:
         if not eval_counts[name]:
-            eval_ms[name] = exact_ms["eval"][name]
-            rollout_ms[name] = exact_ms["rollout"][name]
+            for ms, exact in ((eval_ms, exact_ms["eval"]),
+                              (rollout_ms, exact_ms["rollout"])):
+                ms.pop(name, None)
+                if name in exact:
+                    ms[name] = exact[name]
+    # the dedupe runs in the report alone: its times, and its device time a
+    # call (its two kernels, the sort and the copies), are phase 8's
+    timing["dedupe_cm"]["eval"] = report_pieces["dedupe_cm"]
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         kernels.append({
@@ -4350,9 +4451,10 @@ def main() -> None:
             # weight gradient's at the update's, among the paths below)
             **timing[name].get("eval", {}), **floor,
             # the profiler's device time per call in each path's run
-            "device_ms": eval_ms[name],
+            **({"device_ms": eval_ms[name]} if name in eval_ms else {}),
             "rollout": {**timing[name].get("rollout", {}),
-                        "device_ms": rollout_ms[name]},
+                        **({"device_ms": rollout_ms[name]}
+                           if name in rollout_ms else {})},
             # phase 3 at the DDA step's and the converted scenes' shapes
             **{path: t for path, t in timing[name].items()
                if path not in ("eval", "rollout")}})

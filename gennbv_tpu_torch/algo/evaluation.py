@@ -26,8 +26,8 @@ import numpy as np
 import torch
 
 from gennbv_tpu_torch.models import distributions
-from gennbv_tpu_torch.ops import (backproject, camera, chamfer, fp32, nn_min,
-                                  render)
+from gennbv_tpu_torch.ops import (backproject, camera, chamfer, dedupe, fp32,
+                                  nn_min, render)
 from gennbv_tpu_torch.utils import profiling
 
 # point pairs of one NN pass on the CPU, where the plain loop builds its
@@ -37,6 +37,9 @@ from gennbv_tpu_torch.utils import profiling
 _NN_PAIRS_PER_PASS = 25_000_000
 # the unit of each evaluate call's spans: its number in the process
 _calls = itertools.count(1)
+# batched_accuracy pads each env's scan points to the largest count rounded
+# up to a multiple of this
+SCAN_PAD = 1024
 
 
 class EvalResult(NamedTuple):
@@ -113,7 +116,8 @@ def batched_accuracy(deduped, gt_pts, gt_mask, vox, group: int | None = None,
     """Reconstruction-accuracy metrics over all envs' episode scans, on
     `device` (the card unless the caller asks for the CPU).
 
-    Scan points are padded to a common count and masked; each point's min
+    Scan points are padded to a common count (the largest rounded up to
+    SCAN_PAD) and masked, the masks from each env's count; each point's min
     runs over the whole target set, so every derived metric equals the
     per-env form's.  On the card each pass is one launch of the kernel
     over every env (``ops/nn_min.py``), each env's pairs to its own
@@ -127,30 +131,42 @@ def batched_accuracy(deduped, gt_pts, gt_mask, vox, group: int | None = None,
     device-timed span ``eval/accuracy/nn``.
 
     Args: deduped - list of N [Pi, 3] arrays (rounded and deduped scan
-    points, possibly empty); gt_pts/gt_mask - [N, Pg, 3]/[N, Pg]
+    points, possibly empty), or the card's ``dedupe.Deduped`` (its rows
+    [N, P, 3] on `device`, zero-padded to P = that padded count, and its
+    host counts); gt_pts/gt_mask - [N, Pg, 3]/[N, Pg]
     scene-gathered GT samples; vox - [N] render voxel size.
 
     Returns (mean_acc_cm, acc_s2g_cm, acc_g2s_cm, acc_g2s_seen_cm,
     gt_unseen_frac, gt_floor_cm); all NaN when no env has scan points.
     """
-    n = len(deduped)
+    on_rows = isinstance(deduped, dedupe.Deduped)
+    counts = (deduped.counts if on_rows
+              else np.array([len(p) for p in deduped], np.int64))
+    n = len(counts)
     gt_mask = np.asarray(gt_mask)
-    has = np.array([len(p) > 0 for p in deduped])
+    has = counts > 0
     if not has.any():
         nan = float("nan")
         return nan, nan, nan, nan, nan, nan
 
-    pmax = -(-max(len(p) for p in deduped) // 1024) * 1024
-    scan = np.zeros((n, pmax, 3), np.float32)
-    smask = np.zeros((n, pmax), bool)
-    for e, p in enumerate(deduped):
-        scan[e, :len(p)] = p
-        smask[e, :len(p)] = True
+    pmax = -(-int(counts.max()) // SCAN_PAD) * SCAN_PAD
+    smask = np.arange(pmax)[None, :] < counts[:, None]
 
     def dev(a, dtype=None):
         return torch.as_tensor(np.asarray(a, dtype), device=device)
 
-    scan_t, smask_t = dev(scan), dev(smask)
+    if on_rows:
+        if deduped.rows.shape != (n, pmax, 3):
+            raise ValueError(f"batched_accuracy: rows {list(deduped.rows.shape)}"
+                             f" for counts up to {int(counts.max())}: expected "
+                             f"[{n}, {pmax}, 3]")
+        scan_t = deduped.rows
+    else:
+        scan = np.zeros((n, pmax, 3), np.float32)
+        for e, p in enumerate(deduped):
+            scan[e, :len(p)] = p
+        scan_t = dev(scan)
+    smask_t = dev(smask)
     gt_t, gm_t = dev(gt_pts, np.float32), dev(gt_mask)
 
     on_card = torch.device(device).type == "cuda"
@@ -237,6 +253,8 @@ class Episodes(NamedTuple):
     # [T + 1, N, S]; None without the scan
     scan_pts: np.ndarray | None
     scan_valid: np.ndarray | None
+    # the same two on the env's device, which the card's dedupe reads
+    device_scans: tuple[torch.Tensor, torch.Tensor] | None = None
 
 
 def run_episodes(env, policy: torch.nn.Module, point_stride: int = 8,
@@ -283,14 +301,15 @@ def run_episodes(env, policy: torch.nn.Module, point_stride: int = 8,
             with profiling.span("eval/fetch"):
                 rewards, dones, coverage = torch.stack(steps, 1).cpu().numpy()
                 init_coverage = reset_out.coverage.cpu().numpy()
-                scans = ((torch.stack(scan_pts).cpu().numpy(),
-                          torch.stack(scan_valid).cpu().numpy())
-                         if compute_accuracy else (None, None))
+                scans = ((torch.stack(scan_pts), torch.stack(scan_valid))
+                         if compute_accuracy else None)
+                host = ([t.cpu().numpy() for t in scans] if compute_accuracy
+                        else (None, None))
             return Episodes(
                 init_coverage=init_coverage, rewards=rewards,
                 dones=dones > 0.5, coverage=coverage,
-                scene_id=state.scene_id, scan_pts=scans[0],
-                scan_valid=scans[1])
+                scene_id=state.scene_id, scan_pts=host[0],
+                scan_valid=host[1], device_scans=scans)
     finally:
         policy.train(was_training)
 
@@ -306,16 +325,34 @@ def before_done_mask(dones: np.ndarray) -> np.ndarray:
 def episode_accuracy(env, ep: Episodes):
     """The six accuracy metrics of batched_accuracy for the episodes'
     scans, on the env's device.  The span ``eval/accuracy`` (→
-    ``eval/accuracy/dedupe``, the host's dedupe, and
-    ``eval/accuracy/nn``, device-timed, the NN passes); the deduped
-    points, summed over the envs, counted in ``accuracy/scan_points``."""
+    ``eval/accuracy/dedupe``, the 1 cm dedupe: on a CUDA env the kernels
+    of ``ops/dedupe.py`` on the scans where they lie, with one wait for
+    the counts; elsewhere ``episode_scans`` on the host; and
+    ``eval/accuracy/nn``, device-timed, the NN passes); summed over the
+    envs, the valid points that enter the dedupe counted in
+    ``accuracy/dedupe_points_in`` and the deduped points in
+    ``accuracy/scan_points``."""
     sc = env.scenes
     sids = ep.scene_id
+    before_done = before_done_mask(ep.dones)
+    on_card = ep.device_scans is not None and ep.device_scans[0].is_cuda
     with profiling.span("eval/accuracy"):
         with profiling.span("eval/accuracy/dedupe"):
-            deduped = episode_scans(ep.scan_pts, ep.scan_valid,
-                                    before_done_mask(ep.dones))
-        profiling.count("accuracy/scan_points", sum(map(len, deduped)))
+            if on_card:
+                pts, valid = ep.device_scans
+                first_done = torch.as_tensor(
+                    before_done.sum(axis=0).astype(np.int64) - 1,
+                    device=pts.device)
+                deduped = dedupe.dedupe_cm(pts, valid, first_done, SCAN_PAD)
+                points_in, kept = deduped.points_in.sum(), deduped.counts.sum()
+            else:
+                deduped = episode_scans(ep.scan_pts, ep.scan_valid,
+                                        before_done)
+                points_in = ep.scan_valid[0].sum() + (
+                    ep.scan_valid[1:] & before_done[:, :, None]).sum()
+                kept = sum(map(len, deduped))
+        profiling.count("accuracy/dedupe_points_in", int(points_in))
+        profiling.count("accuracy/scan_points", int(kept))
         box_lo = sc.box_lo[sids].cpu().numpy()
         box_hi = sc.box_hi[sids].cpu().numpy()
         vox = (box_hi - box_lo).max(axis=1) / sc.grid_res

@@ -4,9 +4,9 @@ each wrapper adds one to its counter ``kernel/<name>/launches``
 else."""
 from __future__ import annotations
 
-from gennbv_tpu_torch.ops import (bresenham, conv3d_wgrad, fused_splat,
-                                  gather, nn_min, raymarch, scatter,
-                                  zbuf_scatter)
+from gennbv_tpu_torch.ops import (bresenham, conv3d_wgrad, dedupe,
+                                  fused_splat, gather, nn_min, raymarch,
+                                  scatter, zbuf_scatter)
 from gennbv_tpu_torch.utils import profiling
 
 WRAPPERS = {
@@ -18,6 +18,7 @@ WRAPPERS = {
     "raymarch": raymarch.raymarch,
     "bresenham": bresenham.bresenham,
     "nn_min": nn_min.nn_min,
+    "dedupe_cm": dedupe.dedupe_cm,
 }
 
 

@@ -685,7 +685,8 @@ def test_dda_step_kernels_equal_plain(cuda):
     assert chip_smoke.launches() == {"gather_image": 1, "scatter_cells_any": 1,
                                      "zbuf_visible": 0, "zbuf_scatter_min": 0,
                                      "conv3d_wgrad": 0, "raymarch": 0,
-                                     "bresenham": 0, "nn_min": 0}
+                                     "bresenham": 0, "nn_min": 0,
+                                     "dedupe_cm": 0}
     assert torch.equal(hits, scatter.scatter_cells_any_ref(idx, valid, 20))
     assert torch.equal(free, gather.gather_image_ref(fg, vi, ui))
     assert hits.sum() > 0 and free.sum() > 0

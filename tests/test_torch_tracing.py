@@ -115,7 +115,8 @@ def test_kernel_launches_live_in_the_counter_store():
     assert kernels.launches() == {"gather_image": 1, "scatter_cells_any": 0,
                                   "zbuf_visible": 2, "zbuf_scatter_min": 0,
                                   "conv3d_wgrad": 0, "raymarch": 0,
-                                  "bresenham": 0, "nn_min": 0}
+                                  "bresenham": 0, "nn_min": 0,
+                                  "dedupe_cm": 0}
     assert profiling.counters("kernel/")["kernel/zbuf_visible/launches"] == 2
     kernels.reset_launches()
     assert set(kernels.launches().values()) == {0}
